@@ -1,11 +1,11 @@
 """easysimp_tpu_torch — the PyTorch / CUDA port of easysimp_tpu.
 
-The voxel SIMP loop of the JAX package, run on tensors on an explicit device
-(`simp_optimize(..., device="cuda")`).  On a CUDA device the stiffness
-matvec and the element energies run as hand-written CUDA kernels for sm_90a
-(ops/cuda_kernels.py); on the CPU their plain PyTorch versions run.  The
-package imports torch, numpy and scipy, never jax: the JAX package stays
-the reference that the tests hold the port against.
+The voxel SIMP loop of the JAX package, run on tensors on a CUDA device
+unless the caller asks for the CPU (`device="cpu"`).  On a CUDA device the
+stiffness matvec and the element energies run as hand-written CUDA kernels
+for sm_90a (ops/cuda_kernels.py); on the CPU their plain PyTorch versions
+run.  The package imports torch, numpy and scipy, never jax: the JAX
+package stays the reference that the tests hold the port against.
 
 Module names follow easysimp_tpu, so each port has its counterpart there.
 """

@@ -31,7 +31,7 @@ def params_from_reference(obj) -> OptimizationParameters:
     return OptimizationParameters(**kw)
 
 
-def fields_from_numpy(design, u, *, dtype, device="cpu"):
+def fields_from_numpy(design, u, *, dtype, device="cuda"):
     """(design (nx, ny, nz), u (nx+1, ny+1, nz+1, 3)) numpy arrays in the JAX
     layouts -> tensors of `dtype` on `device`."""
     design = np.asarray(design)

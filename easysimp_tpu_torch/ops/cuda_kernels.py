@@ -11,10 +11,12 @@ Counterpart of easysimp_tpu/ops/pallas_kernels.py:
                   quadratic u_e^T ke u_e.
 
 Both kernels are CUDA C++ for sm_90a in `csrc/voxel_kernels.cu`; the source
-says what bounds each on an H100 and what its design does about it.  They
-are built at first use with `nvcc` into a shared library with a plain C
-interface, under `_build/` keyed by a hash of the sources, and loaded with
-ctypes.
+says what bounds each on an H100 and what its design does about it.  For
+float32 and bfloat16 storage they run the element product on the tensor
+cores in 3xTF32 (`tf32_round` below states that arithmetic in PyTorch); for
+float64 they are simple kernels on the FP64 CUDA cores.  They are built at
+first use with `nvcc` into a shared library with a plain C interface, under
+`_build/` keyed by a hash of the sources, and loaded with ctypes.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
 plain version (the reference XLA path's gather -> (N,24)@(24,24) ->
@@ -48,6 +50,8 @@ __all__ = [
     "voxel_matvec_plain",
     "voxel_energies",
     "voxel_energies_plain",
+    "voxel_matvec_simple_f32",
+    "tf32_round",
     "build_kernels",
 ]
 
@@ -101,6 +105,23 @@ def voxel_energies_plain(u, ke):
     ue = gather_element_dofs(u).to(ke.dtype)
     q = (ue.reshape(-1, 24) @ ke).reshape(ue.shape)
     return (ue * q).sum(dim=-1).to(u.dtype)
+
+
+def tf32_round(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32` rounds; returned as float32.
+
+    The float32 and bfloat16 kernels form q_e = ke u_e on the tensor cores
+    from such values, in 3xTF32: with hi = tf32_round(x) and
+    lo = tf32_round(x - hi) for both operands, q = a_lo b_hi + a_hi b_lo +
+    a_hi b_hi, each product exact and the sums in float32 (the dropped
+    a_lo b_lo is ~2^-22 relative).  bfloat16 values are exact in TF32, so
+    a_lo = 0 for bfloat16 storage."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    # + half an ulp of TF32 to the magnitude bits, then cut the low 13 bits
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 # --------------------------------------------------------------------------
@@ -161,6 +182,8 @@ def build_kernels():
         fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
+    lib.voxel_matvec_simple_f32.argtypes = lib.voxel_matvec_f32.argtypes
+    lib.voxel_matvec_simple_f32.restype = ctypes.c_int
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       log=log)
     _lib = lib
@@ -204,6 +227,21 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def _launch_matvec(symbol, u, scale, ke):
+    nx, ny, nz = _check_field(u)
+    _check_cuda("scale", scale, u.dtype, (nx, ny, nz), u.device)
+    _check_cuda("ke", ke, compute_dtype(u.dtype), (24, 24), u.device)
+    lib = build_kernels()
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, symbol)(
+            u.data_ptr(), scale.data_ptr(), ke.data_ptr(), out.data_ptr(),
+            nx, ny, nz, stream)
+    _raise_on(err, symbol)
+    return out
+
+
 def voxel_matvec(u, scale, ke):
     """K(rho) u on a hex8 voxel grid, with scale = E(rho) per element.
 
@@ -214,22 +252,27 @@ def voxel_matvec(u, scale, ke):
         return voxel_matvec_plain(u, scale, ke)
     if u.device.type != "cuda":
         raise ValueError(f"no voxel_matvec for device {u.device}")
-    nx, ny, nz = _check_field(u)
-    _check_cuda("scale", scale, u.dtype, (nx, ny, nz), u.device)
-    _check_cuda("ke", ke, compute_dtype(u.dtype), (24, 24), u.device)
-    lib = build_kernels()
-    out = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"voxel_matvec_{_SUFFIX[u.dtype]}")(
-            u.data_ptr(), scale.data_ptr(), ke.data_ptr(), out.data_ptr(),
-            nx, ny, nz, stream)
-    _raise_on(err, "voxel_matvec")
+    out = _launch_matvec(f"voxel_matvec_{_SUFFIX[u.dtype]}", u, scale, ke)
     voxel_matvec.launches += 1
     return out
 
 
 voxel_matvec.launches = 0
+
+
+def voxel_matvec_simple_f32(u, scale, ke):
+    """The first, simple float32 matvec kernel (CUDA cores, one thread per
+    node), kept only as a yardstick for `voxel_matvec`: `chip_smoke.py`
+    times the two in the same run.  CUDA float32 tensors only."""
+    if u.device.type != "cuda" or u.dtype != torch.float32:
+        raise ValueError("voxel_matvec_simple_f32 takes CUDA float32 "
+                         f"tensors, got {u.dtype} on {u.device}")
+    out = _launch_matvec("voxel_matvec_simple_f32", u, scale, ke)
+    voxel_matvec_simple_f32.launches += 1
+    return out
+
+
+voxel_matvec_simple_f32.launches = 0
 
 
 def voxel_energies(u, ke):

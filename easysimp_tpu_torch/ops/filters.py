@@ -45,7 +45,7 @@ class VoxelFilter:
     and the boundary-normalization field, built once on `device`."""
 
     def __init__(self, grid, filter_radius_ratio, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
         self.grid = grid
         self.dtype = dtype
         self.device = torch.device(device)
@@ -86,7 +86,7 @@ class VoxelFilter:
 
 
 def create_filter_cache(grid, filter_radius_ratio, dtype=torch.float32,
-                        device="cpu"):
+                        device="cuda"):
     """Filter cache with radius = ratio x characteristic element size
     (FilterCommon.jl:61-98).  Voxel grids only in this port."""
     from ..grids import VoxelGrid

@@ -40,7 +40,7 @@ class VoxelOperator:
     """
 
     def __init__(self, grid, E0=1.0, Emin=1e-9, nu=0.3, p=3.0,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.grid = grid
         self.E0 = float(E0)
         self.Emin = float(Emin)

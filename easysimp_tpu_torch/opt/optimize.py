@@ -137,7 +137,7 @@ class VoxelStep:
 
 def build_voxel_step(grid, loads, boundary_conditions,
                      params: OptimizationParameters, acceleration_data=None,
-                     device="cpu") -> VoxelStep:
+                     device="cuda") -> VoxelStep:
     """Build the SIMP iteration for a voxel problem on `device`."""
     if params.material_model is not None:
         raise NotImplementedError(
@@ -257,7 +257,7 @@ def _check_ported(params, mesh, resume_from):
 def simp_optimize(grid, loads, boundary_conditions,
                   params: OptimizationParameters, acceleration_data=None,
                   mesh=None, resume_from=None, *,
-                  device="cpu") -> OptimizationResult:
+                  device="cuda") -> OptimizationResult:
     """Run SIMP topology optimization on a voxel grid.
 
     Args:
@@ -268,8 +268,10 @@ def simp_optimize(grid, loads, boundary_conditions,
       acceleration_data: optional (acceleration_vector, base_density) for
         variable-density body forces (Optimization.jl:195-198, 301-311).
       mesh, resume_from: not ported yet; must be None.
-      device: where every tensor lives ("cpu" or "cuda[:N]").  CUDA runs
-        the operator through the hand-written kernels.
+      device: where every tensor lives, "cuda[:N]" (the default) or "cpu".
+        CUDA runs the operator through the hand-written kernels; without a
+        CUDA device the default raises, and the CPU runs only when asked
+        for.
     """
     if not isinstance(grid, VoxelGrid):
         raise NotImplementedError("unstructured meshes are not ported yet")

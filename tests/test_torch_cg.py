@@ -25,7 +25,8 @@ def _system(seed=2):
     b = rng.standard_normal((*grid_r.nnodes_per_axis, 3)) * mask
     ring = rng.standard_normal((4, *b.shape))
     op_r = et.VoxelOperator(grid_r, E0=1.0, Emin=1e-9, dtype=jnp.float64)
-    op_p = pt.VoxelOperator(grid_p, E0=1.0, Emin=1e-9, dtype=torch.float64)
+    op_p = pt.VoxelOperator(grid_p, E0=1.0, Emin=1e-9, dtype=torch.float64,
+                            device="cpu")
     return op_r, op_p, mask, rho, b, ring
 
 

@@ -20,7 +20,7 @@ def test_voxel_filter_matches_reference(radius, op):
     f_r = et.create_filter_cache(et.generate_grid(nels, (0, 0, 0), extents),
                                  radius, dtype=jnp.float64)
     f_p = pt.create_filter_cache(pt.generate_grid(nels, (0, 0, 0), extents),
-                                 radius, dtype=torch.float64)
+                                 radius, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(4)
     rho = rng.uniform(0.0005, 1.0, nels)
     sens = -rng.uniform(0.01, 5.0, nels)

@@ -116,10 +116,10 @@ def test_carry_params_and_fields():
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
     design = np.full((3, 2, 2), 0.4)
     u = np.zeros((4, 3, 3, 3))
-    d_t, u_t = fields_from_numpy(design, u, dtype="float64")
+    d_t, u_t = fields_from_numpy(design, u, dtype="float64", device="cpu")
     assert d_t.dtype == torch.float64 and tuple(u_t.shape) == u.shape
     with pytest.raises(ValueError):
-        fields_from_numpy(design, u[:, :2], dtype="float64")
+        fields_from_numpy(design, u[:, :2], dtype="float64", device="cpu")
 
 
 def test_voxel_body_force():

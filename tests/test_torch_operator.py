@@ -28,7 +28,7 @@ def _problem(nels, extents, seed, E0=3.0, fix_x0=True):
     op_r = et.VoxelOperator(grid_r, E0=E0, Emin=1e-9, nu=0.3, p=3.0,
                             dtype=jnp.float64)
     op_p = pt.VoxelOperator(grid_p, E0=E0, Emin=1e-9, nu=0.3, p=3.0,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     u = rng.standard_normal((*grid_r.nnodes_per_axis, 3))
     rho = rng.uniform(0.05, 1.0, grid_r.nels)
     bcs = [et.apply_fixed_boundary(grid_r, et.select_nodes_by_plane(
@@ -116,7 +116,7 @@ def test_plain_matvec_bfloat16_storage():
     grid_p = pt.generate_grid(nels, (0.0, 0.0, 0.0), (1.6, 1.1, 0.9))
     op16 = et.VoxelOperator(grid_r, dtype=jnp.bfloat16)
     op64 = et.VoxelOperator(grid_r, dtype=jnp.float64)
-    port16 = pt.VoxelOperator(grid_p, dtype=torch.bfloat16)
+    port16 = pt.VoxelOperator(grid_p, dtype=torch.bfloat16, device="cpu")
     assert port16.ke.dtype == torch.float32
     rng = np.random.default_rng(11)
     u = rng.standard_normal((*grid_r.nnodes_per_axis, 3))

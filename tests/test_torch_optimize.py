@@ -32,7 +32,7 @@ def _run_both(**kw):
     grid_p, loads_p, bcs_p = _cantilever(pt)
     res_r = et.simp_optimize(grid_r, loads_r, bcs_r, params)
     res_p = pt.simp_optimize(grid_p, loads_p, bcs_p,
-                             params_from_reference(params))
+                             params_from_reference(params), device="cpu")
     return grid_r, loads_r, bcs_r, params, res_r, res_p
 
 
@@ -96,7 +96,7 @@ def test_logger_files(tmp_path):
     params = pt.OptimizationParameters(
         max_iterations=2, tolerance=1e-9, dtype="float64",
         preconditioner="jacobi", export_path=str(tmp_path))
-    pt.simp_optimize(grid, loads, bcs, params)
+    pt.simp_optimize(grid, loads, bcs, params, device="cpu")
     lines = (tmp_path / "optimization_progress.csv").read_text().splitlines()
     assert lines[0] + "\n" == _CSV_HEADER
     assert [ln.split(",")[0] for ln in lines[1:]] == ["1", "2"]
@@ -117,4 +117,4 @@ def test_unported_options_raise(kw):
     params = pt.OptimizationParameters(max_iterations=1, dtype="float64",
                                        **kw)
     with pytest.raises(NotImplementedError):
-        pt.simp_optimize(grid, loads, bcs, params)
+        pt.simp_optimize(grid, loads, bcs, params, device="cpu")
