@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (sm_90a).
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --trace 3  # main path only, iteration 3 profiled
-                                     # (chrome trace into --trace-dir)
+    python3 chip_smoke.py --trace 3  # multigrid main path only, iteration 3
+                                     # profiled (chrome trace into
+                                     # --trace-dir)
 
 Phases, each of which asserts and prints a line:
   1. card:    the `nvidia-smi` name and power limit;
@@ -14,27 +15,50 @@ Phases, each of which asserts and prints a line:
               kernel, the plain version and (matvec) the simple fp32 kernel
               it replaced are timed in this run (CUDA events around
               replays of a CUDA graph of 10 calls, so no host time is
-              counted; median of 2 x 30 replays, interleaved);
+              counted; median of 2 x 30 replays, interleaved), and at 128^3
+              bfloat16 the matvec and its plain version, as the multigrid
+              cycle runs them;
   4. library: the matvec's yardstick, one cuSPARSE SpMV (`torch.mv` on K(rho)
               assembled as a CSR matrix with int32 indices, the 27-point
               node stencil) at 128^3 float32, checked against the kernel;
   5. main:    `easysimp_tpu_torch.simp_optimize(device="cuda")` on the
               128^3 bench cantilever (float32, Jacobi PCG, adaptive forcing,
               8-slot recycle ring), 3 SIMP iterations; both kernels' launch
-              counters must be > 0 for that run;
-  6. e2e:     3 SIMP iterations of a small problem on the card through the
+              counters must be > 0 for that run (the path before multigrid);
+  6. multigrid: the V-cycle M(r) through the kernels against M(r) with the
+              operator on its plain versions, on the card: float64 at
+              16x8x8 (rtol 1e-12, also against the CPU) and at 128^3
+              float32 with a bfloat16 cycle (5e-2 of max|M r|); two runs of
+              M on one r bitwise equal; at 128^3 the level layout and memory,
+              one V-cycle's device time, in all and by level, and one
+              stencil apply per level (CUDA-graph replays);
+  7. main-mg: the main path, `simp_optimize` on the 128^3 bench cantilever
+              with the bench.py:543-559 composition (Galerkin multigrid,
+              bfloat16 V(1,2) cycle, light setup every 4, adaptive forcing,
+              8-slot recycle ring), 10 SIMP iterations: seconds per
+              iteration, CG counts (< 500), volume fraction, peak memory,
+              launches per kernel and storage dtype (matvec on float32 and
+              bfloat16 > 0, energies > 0); then the same run again with a
+              synchronising timer around each setup and step, for the
+              split between setup and solve time;
+  8. e2e:     3 SIMP iterations of a small problem on the card through the
               kernels, against the same run with the operator's plain
-              versions on the card: float64 (also against the CPU, rtol
-              1e-9) and float32 (rtol 5e-4).
+              versions on the card: Jacobi float64 (also against the CPU,
+              rtol 1e-9) and float32 (rtol 5e-4); multigrid float64 (as
+              preconditioner="auto" resolves; also against the CPU, rtol
+              1e-9) and float32 with a bfloat16 cycle (rtol 5e-4).
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the kernel's work at 128^3 float32: the larger of its bytes (each input read
 once, the output written once) at 3.35 TB/s and its operations at the peak
-rates, the element products as the kernel issues them (3xTF32: three TF32
-products of 2 x 576 flops per element, 495 TFLOP/s) plus its fp32 scale,
-sums or dot on the CUDA cores (67 TFLOP/s).
+rates: the element products at the cheapest split that keeps float32
+accuracy (float32 storage: three TF32 products of 2 x 576 flops per element
+at 495 TFLOP/s; bfloat16 storage, whose values are exact in bfloat16: ke
+split into three bfloat16 pieces, three bfloat16 products at 989 TFLOP/s)
+plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
+launches are those of the main-mg run.
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -43,6 +67,7 @@ package is missing.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -65,6 +90,7 @@ GRAPH_CALLS = 10
 SHAPES = [(37, 19, 11), (128, 128, 128), (1, 2, 3), (33, 1, 65)]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published peaks at 700 W
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 
@@ -123,10 +149,10 @@ def interleaved_ms(fns, graph=True):
     return [float(np.median(s)) for s in samples]
 
 
-def bound(nbytes, tensor_flops, cuda_flops):
+def bound(nbytes, tensor_flops, cuda_flops, tensor_rate=TF32_FLOPS):
     """(bound_ms, bound_by) by the rule in the module docstring."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (tensor_flops / TF32_FLOPS + cuda_flops / FP32_FLOPS) * 1e3
+    t_ops = (tensor_flops / tensor_rate + cuda_flops / FP32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -184,6 +210,9 @@ def check_kernels(pt, ck):
                 assert same, f"{name} is not deterministic"
             if nels == (128, 128, 128) and dtype == torch.float32:
                 report.update(time_kernels(ck, op, u, scale))
+            if nels == (128, 128, 128) and dtype == torch.bfloat16:
+                report["voxel_matvec"].update(
+                    time_matvec_bf16(ck, op, u, scale))
     return report
 
 
@@ -227,6 +256,24 @@ def time_kernels(ck, op, u, scale):
                                plain_ms=en_plain_ms, bound_ms=en_bound[0],
                                bound_by=en_bound[1], library_ms=None),
     }
+
+
+def time_matvec_bf16(ck, op, u, scale):
+    """The matvec on bfloat16 storage at 128^3, as the multigrid cycle's
+    level 0 runs it: kernel and plain times, with its bound (three
+    bfloat16 products per element, ke split into three bfloat16 pieces)."""
+    nels, nn = scale.numel(), u.numel() // 3
+    ms, plain_ms = interleaved_ms([
+        lambda: ck.voxel_matvec(u, scale, op.ke),
+        lambda: ck.voxel_matvec_plain(u, scale, op.ke)])
+    b_ms, b_by = bound(2 * u.nbytes + scale.nbytes + op.ke.nbytes,
+                       3 * 2 * 576 * nels, 24 * nels + 21 * nn,
+                       tensor_rate=BF16_FLOPS)
+    phase("kernels", f"voxel_matvec 128^3 bfloat16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / ms:.1f}% of bound")
+    return dict(bf16_ms=ms, bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
+                bf16_bound_by=b_by)
 
 
 def assemble_csr(ke, scale):
@@ -370,22 +417,27 @@ def operator_on_plain_versions():
 
 
 def run_e2e_check(pt, ck):
-    """Phase 6: kernel path against plain path on a small grid, float64
-    and float32.
+    """Phase 8: kernel path against plain path on a small grid, float64
+    and float32, with Jacobi and with multigrid.
 
     float32 rtol 5e-4: the two float32 paths differ only in the rounding
     of their element products (3xTF32 on the tensor cores against fp32
-    matmuls), but a trajectory carries that difference through CG solves
-    that stop at a relative residual of 1e-5 and through the SIMP updates,
-    and the energies end up ~1e-4 apart (1.0e-4 on an H100 in this phase);
-    5e-4 leaves a margin of five."""
+    matmuls; with a bfloat16 cycle, also in which bfloat16 value a matvec
+    output rounds to), but a trajectory carries that difference through CG
+    solves that stop at a relative residual of 1e-5 and through the SIMP
+    updates, and the energies end up ~1e-4 apart (Jacobi: 1.0e-4 on an
+    H100 in this phase); 5e-4 leaves a margin of five."""
     nels = (24, 12, 12)
-    for dtype, cg_rtol, rtol, with_cpu in [("float64", 1e-10, 1e-9, True),
-                                           ("float32", 1e-5, 5e-4, False)]:
+    for precond, dtype, cycle, cg_rtol, rtol, with_cpu in [
+            ("jacobi", "float64", "", 1e-10, 1e-9, True),
+            ("jacobi", "float32", "", 1e-5, 5e-4, False),
+            ("auto", "float64", "", 1e-10, 1e-9, True),  # multigrid here
+            ("multigrid", "float32", "bfloat16", 1e-5, 5e-4, False)]:
         params = pt.OptimizationParameters(
             E0=1.0, Emin=1e-9, nu=0.3, p=3.0, volume_fraction=0.3,
             filter_radius=1.5, dtype=dtype, max_iterations=3,
-            tolerance=1e-9, preconditioner="jacobi", cg_rtol=cg_rtol)
+            tolerance=1e-9, preconditioner=precond, cg_rtol=cg_rtol,
+            mg_cycle_dtype=cycle, mg_smooth_iters=(1, 2))
         launches0 = ck.voxel_matvec.launches
         kern = pt.simp_optimize(*cantilever(pt, nels), params, device="cuda")
         assert ck.voxel_matvec.launches > launches0
@@ -403,53 +455,383 @@ def run_e2e_check(pt, ck):
                       zip(kern.energy_history, other.energy_history))
             ok = len(kern.energy_history) == len(other.energy_history) \
                 and rel <= rtol
-            phase("e2e", f"{nels} {dtype}, kernels vs {name}: energy max "
+            phase("e2e", f"{nels} {precond} {dtype}"
+                  f"{' ' + cycle + ' cycle' if cycle else ''}, kernels vs "
+                  f"{name}: energy max "
                   f"rel diff {rel:.3e} (tol {rtol:g}), CG "
                   f"{kern.cg_iterations_history} vs "
                   f"{other.cg_iterations_history} {'ok' if ok else 'FAIL'}")
             assert ok
 
 
-def trace_main_path(pt, ck, iteration, out_dir):
-    """The main path with `torch.profiler` on one SIMP iteration: device
-    time by kernel and the device's idle share in that iteration.  The
-    chrome trace goes to `out_dir`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def mg_problem(pt, nels, dtype, device, seed=0):
+    """The bench cantilever's operator and free mask at `nels`, moduli of a
+    mild design (rho uniform in [0.3, 1]) and a masked random residual, all
+    made from `seed` with numpy."""
+    from easysimp_tpu_torch.ops.operator import VoxelOperator
 
+    grid, _, bcs = cantilever(pt, nels)
+    op = VoxelOperator(grid, E0=1.0, Emin=1e-9, nu=0.3, p=3.0, dtype=dtype,
+                       device=device)
+    dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    mask = dev(pt.build_free_mask(grid, bcs))
+    rng = np.random.default_rng(seed)
+    scale = op.youngs_modulus(dev(rng.uniform(0.3, 1.0, nels)))
+    r = dev(rng.standard_normal((*grid.nnodes_per_axis, 3))) * mask
+    return op, mask, scale, r
+
+
+def max_rel(got, want):
+    """max|got - want| / max|want|, in float64."""
+    got, want = got.double(), want.double().to(got.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_multigrid(pt, ck):
+    """Phase 6."""
+    from easysimp_tpu_torch.ops.multigrid import (
+        MultigridPreconditioner,
+        restrict,
+    )
+    from easysimp_tpu_torch.ops.stencil import apply_stencil
+
+    kw = dict(smooth_iters=(1, 2))
+    # float64 16x8x8: kernels against plain versions on the card and the CPU
+    runs = {}
+    for name, device in [("kernels", "cuda"), ("plain on the card", "cuda"),
+                         ("CPU", "cpu")]:
+        op, mask, scale, r = mg_problem(pt, (16, 8, 8), torch.float64, device)
+        plain = (operator_on_plain_versions() if name.startswith("plain")
+                 else contextlib.nullcontext())
+        with plain:
+            launches0 = ck.voxel_matvec.launches
+            mg = MultigridPreconditioner(op, **kw)
+            runs[name] = mg.preconditioner_factory()(scale, mask)(r)
+            assert (ck.voxel_matvec.launches > launches0) == \
+                (name == "kernels"), name
+    for name in ("plain on the card", "CPU"):
+        rel = max_rel(runs["kernels"], runs[name])
+        ok = rel <= 1e-12 and bool(torch.isfinite(runs["kernels"]).all())
+        phase("multigrid", f"M(r) 16x8x8 float64, {mg.n_levels} levels, "
+              f"kernels vs {name}: max_abs_err/max|M r| {rel:.3e} (tol "
+              f"1e-12) {'ok' if ok else 'FAIL'}")
+        assert ok
+
+    # 128^3 float32 with a bfloat16 cycle, as the main path runs it
+    nels = (128, 128, 128)
+    op, mask, scale, r = mg_problem(pt, nels, torch.float32, "cuda")
+    mg = MultigridPreconditioner(op, cycle_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pvecs = mg.power_init(scale, mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, _ = mg.setup(scale, mask, pvecs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    setup_peak = torch.cuda.max_memory_allocated() - base
+    M = mg.make_M(state)
+    got = M(r)
+    again = M(r)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    with operator_on_plain_versions():
+        launches0 = ck.voxel_matvec.launches
+        state_p, _ = mg.setup(scale, mask, pvecs)
+        want = mg.make_M(state_p)(r)
+        assert ck.voxel_matvec.launches == launches0
+        del state_p
+    rel = max_rel(got, want)
+    ok = rel <= 5e-2 and bool(torch.isfinite(got).all())
+    phase("multigrid", f"M(r) 128^3 float32, bfloat16 cycle, kernels vs "
+          f"plain on the card: max_abs_err/max|M r| {rel:.3e} (tol 5e-2: "
+          f"one bfloat16 ulp is 2^-8), two runs bitwise equal: {same} "
+          f"{'ok' if ok and same else 'FAIL'}")
+    assert ok and same
+    phase("multigrid", f"128^3 power_init {t1 - t0:.3f} s, setup "
+          f"{t2 - t1:.3f} s (host clock, first calls), setup peak "
+          f"{setup_peak / 1e6:.0f} MB above {base / 1e6:.0f} MB")
+    for lvl, o in enumerate(mg.ops):
+        st = state["stencils"][lvl]
+        what = ("voxel_matvec on " + str(mg.cycle_ops[lvl].dtype)[6:]
+                if st is None else
+                f"stencil {tuple(st.shape)} {str(st.dtype)[6:]} "
+                f"{st.nbytes / 1e6:.1f} MB")
+        if lvl == mg.n_levels - 1:
+            what += f", dense Cholesky {tuple(state['cho'][0].shape)}"
+        phase("multigrid", f"  level {lvl}: {o.grid.nels} elements, "
+              f"{3 * o.grid.n_nodes} dofs, {what}")
+
+    # one V-cycle's device time, in all and from each level down
+    lp = torch.bfloat16
+    rs = [r.to(lp)]
+    for lvl in range(1, mg.n_levels):
+        rs.append(state["masks"][lvl] * restrict(rs[-1]))
+    cycle_ms, = interleaved_ms([lambda: M(r)])
+    down = [interleaved_ms([lambda lvl=lvl: mg._vcycle(lvl, state,
+                                                       rs[lvl])])[0]
+            for lvl in range(mg.n_levels)] + [0.0]
+    own = [down[lvl] - down[lvl + 1] for lvl in range(mg.n_levels)]
+    phase("multigrid", f"one V-cycle 128^3 (M(r), bfloat16 cycle, CUDA-graph "
+          f"replays): {cycle_ms:.4f} ms; by level (cycle from the level down "
+          f"minus the next): "
+          + ", ".join(f"L{lvl} {t:.4f} ms" for lvl, t in enumerate(own)))
+    # one apply_stencil per level that the cycle smooths with a stencil,
+    # with its byte bound (coefficients and field read once, the result
+    # written once)
+    for lvl in range(1, mg.n_levels - 1):
+        st = state["stencils"][lvl]
+        ms, = interleaved_ms([lambda: apply_stencil(st, rs[lvl])])
+        b_ms = (st.nbytes + 2 * rs[lvl].nbytes) / HBM_BYTES_PER_S * 1e3
+        phase("multigrid", f"  apply_stencil level {lvl} "
+              f"{tuple(rs[lvl].shape[:3])} nodes {str(st.dtype)[6:]}: "
+              f"{ms:.4f} ms (CUDA-graph replays), byte bound {b_ms:.4f} ms")
+    del state, M, got, again, want
+    torch.cuda.empty_cache()
+
+
+def main_mg_params(pt, iterations=10):
+    """The bench.py:543-559 composition."""
+    return pt.OptimizationParameters(
+        E0=1.0, Emin=1e-9, nu=0.3, p=3.0, volume_fraction=0.3,
+        filter_radius=1.5, dtype="float32", max_iterations=iterations,
+        tolerance=1e-9, preconditioner="multigrid",
+        mg_cycle_dtype="bfloat16", mg_smooth_iters=(1, 2),
+        mg_refresh_iters=2, mg_full_setup_every=4, cg_rtol=1e-5,
+        cg_rtol_max=1e-3, cg_forcing="adaptive", cg_recycle_k=8,
+        cg_maxiter=500)
+
+
+@contextlib.contextmanager
+def patched_voxel_step(wrap):
+    """simp_optimize builds its VoxelStep through wrap(vs) -> vs'."""
     from easysimp_tpu_torch.opt import optimize
 
     build = optimize.build_voxel_step
-    window = {}
-
-    def traced_build(*args, **kwargs):
-        vs = build(*args, **kwargs)
-        calls = [0]
-
-        def step(*a, **kw):
-            calls[0] += 1
-            if calls[0] != iteration:
-                return vs.step(*a, **kw)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out = vs.step(*a, **kw)
-                torch.cuda.synchronize()
-                window.update(wall=time.perf_counter() - t0, prof=prof,
-                              cg=out.cg_iters)
-            return out
-        return dataclasses.replace(vs, step=step)
-
-    optimize.build_voxel_step = traced_build
+    optimize.build_voxel_step = lambda *a, **kw: wrap(build(*a, **kw))
     try:
-        grid, loads, bcs = cantilever(pt, (128, 128, 128))
-        pt.simp_optimize(grid, loads, bcs, main_path_params(pt))
+        yield
     finally:
         optimize.build_voxel_step = build
+
+
+def timed(fn, seconds):
+    """fn, with the host time of each call (synchronised on both sides)
+    appended to `seconds`."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def run_main_mg(pt, ck):
+    """Phase 7: the multigrid main path at 128^3 on the card, as a user
+    runs it (seconds per iteration, CG, launches), then once more with a
+    synchronising timer around each power_init, setup and step for the
+    split between setup and solve (those syncs cost the overlap of a
+    setup's device tail with the step's enqueue, so the split comes from
+    that second run only)."""
+    grid, loads, bcs = cantilever(pt, (128, 128, 128))
+    params = main_mg_params(pt)
+
+    for fn in (ck.voxel_matvec, ck.voxel_energies):
+        fn.launches = 0
+        fn.launches_by_dtype.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pt.simp_optimize(grid, loads, bcs, params)  # device="cuda"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"voxel_matvec": ck.voxel_matvec.launches,
+                "voxel_energies": ck.voxel_energies.launches}
+    by_dtype = {fn.__name__: {str(k)[6:]: v for k, v in
+                              fn.launches_by_dtype.items()}
+                for fn in (ck.voxel_matvec, ck.voxel_energies)}
+    mv = dict(ck.voxel_matvec.launches_by_dtype)
+
+    times = {"power_init": [], "setup": [], "step": []}
+    kinds = []      # "F" full setup, "L" light setup (on a previous state)
+
+    def wrap(vs):
+        setup = timed(vs.setup, times["setup"])
+
+        def kind_setup(design, pvecs, prev_state=None):
+            kinds.append("F" if prev_state is None else "L")
+            return setup(design, pvecs, prev_state)
+
+        return dataclasses.replace(
+            vs, power_init=timed(vs.power_init, times["power_init"]),
+            setup=kind_setup, step=timed(vs.step, times["step"]))
+
+    with patched_voxel_step(wrap):
+        timed_res = pt.simp_optimize(grid, loads, bcs, params)
+
+    vol_fracs = [v / grid.total_volume for v in res.volume_history]
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
+    phase("main-mg", f"128^3 float32, multigrid bfloat16 V(1,2): "
+          f"{res.iterations} iterations, seconds/iteration "
+          f"{fmt(res.iteration_seconds)} (median "
+          f"{float(np.median(res.iteration_seconds)):.4f}), CG "
+          f"{res.cg_iterations_history}")
+    phase("main-mg", f"  timed run (synchronised around each call): setup s "
+          f"{fmt(times['setup'])} ({''.join(kinds)}: F full, L light; "
+          f"power_init {fmt(times['power_init'])} before the loop), step s "
+          f"(solve, sensitivities, OC) {fmt(times['step'])}, "
+          f"seconds/iteration {fmt(timed_res.iteration_seconds)}, CG "
+          f"{timed_res.cg_iterations_history}")
+    phase("main-mg", f"  energy {res.energy_history}")
+    phase("main-mg", f"  volume fraction {vol_fracs}, total {wall:.2f} s "
+          f"(power_init and final analysis included), peak memory "
+          f"{peak / 1e9:.3f} GB, launches {launches}, by storage dtype "
+          f"{by_dtype}")
+    assert res.iterations == params.max_iterations
+    assert all(math.isfinite(e) for e in res.energy_history)
+    assert math.isfinite(res.energy)
+    assert all(abs(v - 0.3) <= 1e-4 for v in vol_fracs), vol_fracs
+    assert all(c < 500 for c in res.cg_iterations_history)
+    assert np.all(np.isfinite(res.densities))
+    assert np.all(np.isfinite(res.displacements))
+    # the timed run is the same computation (5e-4: the float32 rtol of e2e)
+    assert len(timed_res.energy_history) == len(res.energy_history)
+    assert all(abs(a - b) <= 5e-4 * abs(b) for a, b in
+               zip(timed_res.energy_history, res.energy_history))
+    assert all(c < 500 for c in timed_res.cg_iterations_history)
+    assert mv[torch.float32] > 0 and mv[torch.bfloat16] > 0, by_dtype
+    assert ck.voxel_energies.launches > 0
+    return launches
+
+
+# Trace groups for the kernels launched inside these ranges (the innermost
+# matching range wins in this order), after the kernel-name groups.
+MG_RANGES = [("mg:setup", "im2col and setup"),
+             ("mg:dense_solve", "dense solve"),
+             ("mg:transfer", "transfers"),
+             ("mg:stencil", "stencil apply")]
+
+
+@contextlib.contextmanager
+def annotated_multigrid():
+    """Profiler ranges around the multigrid's stencil applies, transfers
+    and coarsest solves (a tracing harness only)."""
+    from torch.profiler import record_function
+
+    from easysimp_tpu_torch.ops import multigrid as mgm
+
+    def ranged(fn, label):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    cls = mgm.MultigridPreconditioner
+    saved = (mgm.apply_stencil, mgm.prolong, mgm.restrict,
+             cls.__dict__["_cholesky_solve"])
+    mgm.apply_stencil = ranged(saved[0], "mg:stencil")
+    mgm.prolong = ranged(saved[1], "mg:transfer")
+    mgm.restrict = ranged(saved[2], "mg:transfer")
+    cls._cholesky_solve = staticmethod(ranged(saved[3].__func__,
+                                              "mg:dense_solve"))
+    try:
+        yield
+    finally:
+        mgm.apply_stencil, mgm.prolong, mgm.restrict = saved[:3]
+        cls._cholesky_solve = saved[3]
+
+
+def trace_groups(path):
+    """Device time by group from an exported chrome trace: each kernel is
+    tied to its launch (by correlation id) and grouped by its name or by
+    the profiler ranges around its launch."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launch_at, ranges, kernels = {}, [], []
+    for e in events:
+        cat, args = e.get("cat", ""), e.get("args", {})
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_at[args["correlation"]] = (e["ts"], e.get("tid"))
+        elif cat == "user_annotation" and e["name"].startswith("mg:"):
+            ranges.append((e["ts"], e["ts"] + e.get("dur", 0), e.get("tid"),
+                           e["name"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kernels.append(e)
+    groups = collections.Counter()
+    for k in kernels:
+        name, dur = k["name"], k.get("dur", 0)
+        ts, tid = launch_at.get(k.get("args", {}).get("correlation"),
+                                (None, None))
+        inside = {label for a, b, t, label in ranges
+                  if ts is not None and t == tid and a <= ts <= b}
+        low = name.lower()
+        if "voxel_matvec" in name:
+            key = ("voxel_matvec bf16" if "bfloat16" in low
+                   else "voxel_matvec fp32")
+        elif "voxel_energies" in name:
+            key = "voxel_energies"
+        else:
+            key = next((g for label, g in MG_RANGES if label in inside), None)
+        if key is None:
+            key = ("dots and reductions" if any(
+                       w in low for w in ("dot", "reduce", "gemv"))
+                   else "PyTorch elementwise" if "elementwise" in low
+                   else "other")
+        groups[key] += dur
+    return groups
+
+
+def trace_main_path(pt, ck, iteration, out_dir):
+    """The multigrid main path with `torch.profiler` on one SIMP iteration
+    (its setup and its step): device time by group and the device's idle
+    share in that iteration.  The chrome trace goes to `out_dir`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    window = {}
+
+    def wrap(vs):
+        steps = [0]
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def begin():
+            if steps[0] == iteration - 1 and "prof" not in window:
+                torch.cuda.synchronize()
+                prof.__enter__()
+                window.update(prof=prof, t0=time.perf_counter())
+
+        def setup(*a, **kw):
+            begin()
+            with record_function("mg:setup"):
+                return vs.setup(*a, **kw)
+
+        def step(*a, **kw):
+            begin()
+            out = vs.step(*a, **kw)
+            steps[0] += 1
+            if steps[0] == iteration:
+                torch.cuda.synchronize()
+                window.update(wall=time.perf_counter() - window["t0"],
+                              cg=out.cg_iters)
+                prof.__exit__(None, None, None)
+            return out
+        return dataclasses.replace(vs, setup=setup, step=step)
+
+    grid, loads, bcs = cantilever(pt, (128, 128, 128))
+    with patched_voxel_step(wrap), annotated_multigrid():
+        pt.simp_optimize(grid, loads, bcs,
+                         main_mg_params(pt, iterations=iteration))
     prof = window["prof"]
+    # device events, without the device-side spans of the profiler ranges
     kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not e.name.startswith("mg:")]
     assert kernels, "the profiler recorded no device time"
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, -math.inf
@@ -461,37 +843,30 @@ def trace_main_path(pt, ck, iteration, out_dir):
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + (e.time_range.end - e.time_range.start), n + 1)
-    groups = {"voxel_matvec": 0.0, "voxel_energies": 0.0,
-              "PyTorch elementwise": 0.0, "dots and reductions": 0.0,
-              "other": 0.0}
-    for name, (t, _) in by_name.items():
-        key = ("voxel_matvec" if "voxel_matvec" in name else
-               "voxel_energies" if "voxel_energies" in name else
-               "PyTorch elementwise" if "elementwise" in name.lower() else
-               "dots and reductions" if any(
-                   s in name.lower() for s in ("dot", "reduce", "gemv"))
-               else "other")
-        groups[key] += t
-    wall_ms, busy_ms = window["wall"] * 1e3, busy_us / 1e3
-    phase("trace", f"iteration {iteration}: CG {window['cg']}, wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%")
-    for key, t in groups.items():
-        phase("trace", f"  {key}: {t / 1e3:.1f} ms, "
-              f"{100 * t / busy_us:.1f}% of busy")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        phase("trace", f"  {t / 1e3:8.2f} ms {n:6d} x  {name[:110]}")
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / f"trace_iteration{iteration}.json"
+    path = out_dir / f"trace_mg_iteration{iteration}.json"
     prof.export_chrome_trace(str(path))
+    groups = trace_groups(path)
+    wall_ms, busy_ms = window["wall"] * 1e3, busy_us / 1e3
+    phase("trace", f"multigrid iteration {iteration} (setup and step): CG "
+          f"{window['cg']}, wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(kernels)} device "
+          f"events")
+    total = sum(groups.values())
+    for key, t in groups.most_common():
+        phase("trace", f"  {key}: {t / 1e3:.2f} ms, "
+              f"{100 * t / total:.1f}% of kernel time")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        phase("trace", f"  {t / 1e3:8.2f} ms {n:6d} x  {name[:110]}")
     phase("trace", f"chrome trace: {path}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", type=int, metavar="ITERATION",
-                        help="run only the main path, profiling this SIMP "
-                             "iteration (1-3)")
+                        help="run only the multigrid main path, profiling "
+                             "this SIMP iteration")
     parser.add_argument("--trace-dir", type=Path, default=Path("traces"),
                         help="where --trace writes its chrome trace "
                              "(default: traces/)")
@@ -523,7 +898,9 @@ def main() -> int:
     else:
         timing = check_kernels(pt, ck)
         timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
-        launches = run_main_path(pt, ck)
+        run_main_path(pt, ck)
+        check_multigrid(pt, ck)
+        launches = run_main_mg(pt, ck)
         run_e2e_check(pt, ck)
         kernels = [{
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,

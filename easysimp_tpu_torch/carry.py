@@ -16,7 +16,8 @@ import torch
 from .config import resolve_dtype
 from .params import OptimizationParameters
 
-__all__ = ["params_from_reference", "fields_from_numpy"]
+__all__ = ["params_from_reference", "fields_from_numpy",
+           "power_vectors_from_numpy"]
 
 
 def params_from_reference(obj) -> OptimizationParameters:
@@ -44,3 +45,18 @@ def fields_from_numpy(design, u, *, dtype, device="cuda"):
     dt = resolve_dtype(dtype, device)
     return (torch.as_tensor(design, dtype=dt, device=device),
             torch.as_tensor(u, dtype=dt, device=device))
+
+
+def power_vectors_from_numpy(vecs, *, dtype, device="cuda"):
+    """The multigrid's carried power vectors, one (nnx_l, nny_l, nnz_l, 3)
+    numpy array per level (as the JAX package's `power_init` returns them),
+    -> a tuple of tensors of `dtype` on `device`."""
+    dt = resolve_dtype(dtype, device)
+    out = []
+    for lvl, v in enumerate(vecs):
+        v = np.array(v)        # a copy: JAX's arrays are read-only
+        if v.ndim != 4 or v.shape[-1] != 3:
+            raise ValueError(f"power vector {lvl} must be (nnx, nny, nnz, 3), "
+                             f"got {v.shape}")
+        out.append(torch.as_tensor(v, dtype=dt, device=device))
+    return tuple(out)

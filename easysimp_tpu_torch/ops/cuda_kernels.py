@@ -22,7 +22,8 @@ Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
 plain version (the reference XLA path's gather -> (N,24)@(24,24) ->
 scatter-add, written in PyTorch), a CUDA tensor launches the kernel or
 raises.  There is no fallback: a missing `nvcc`, a failed build or a refused
-launch raises.  `<wrapper>.launches` counts kernel launches and nothing else.
+launch raises.  `<wrapper>.launches` counts kernel launches and nothing else;
+`<wrapper>.launches_by_dtype` counts the same launches by storage dtype.
 
 bf16 storage computes in fp32, as the Pallas kernels do: the wrappers take
 `ke` in the compute dtype (float64 for float64 storage, float32 otherwise).
@@ -30,6 +31,7 @@ bf16 storage computes in fp32, as the Pallas kernels do: the wrappers take
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -254,10 +256,12 @@ def voxel_matvec(u, scale, ke):
         raise ValueError(f"no voxel_matvec for device {u.device}")
     out = _launch_matvec(f"voxel_matvec_{_SUFFIX[u.dtype]}", u, scale, ke)
     voxel_matvec.launches += 1
+    voxel_matvec.launches_by_dtype[u.dtype] += 1
     return out
 
 
 voxel_matvec.launches = 0
+voxel_matvec.launches_by_dtype = collections.Counter()
 
 
 def voxel_matvec_simple_f32(u, scale, ke):
@@ -294,7 +298,9 @@ def voxel_energies(u, ke):
             u.data_ptr(), ke.data_ptr(), out.data_ptr(), nx, ny, nz, stream)
     _raise_on(err, "voxel_energies")
     voxel_energies.launches += 1
+    voxel_energies.launches_by_dtype[u.dtype] += 1
     return out
 
 
 voxel_energies.launches = 0
+voxel_energies.launches_by_dtype = collections.Counter()

@@ -13,9 +13,17 @@ Iteration semantics match the reference:
   * convergence break AFTER logging                     (:484-488)
   * final analysis: re-filter, re-solve, stress recovery (:494-539)
 
-Preconditioners: "jacobi" and "none"; "block_jacobi" and "amg" fall through
-to Jacobi on voxel grids, as in the reference.  Geometric multigrid
-("auto", "multigrid") is not ported yet and raises.
+Preconditioners: geometric multigrid ("multigrid", and "auto" when the grid
+has a coarser level; ops/multigrid.py), "jacobi" and "none"; "block_jacobi"
+and "amg" fall through to Jacobi on voxel grids, as in the reference.
+
+Multigrid carries state across iterations (easysimp_tpu/opt/optimize.py
+:720-819): per-level power vectors, estimated cold once before the loop and
+refreshed by every setup; and the V-cycle state, rebuilt every
+`mg_setup_every` iterations (in full every `mg_full_setup_every`, the
+fine half only in between) or at once when the last solve's CG count grew
+past 1.5x (and +3) of the count after the last full setup.  The reference
+runs that as separate programs; here it is one eager loop.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..grids import VoxelGrid
 from ..loads import build_load_field, voxel_body_force
 from ..ops.cg import cg_solve, recycle_deflate, recycle_init, recycle_push
 from ..ops.filters import create_filter_cache
+from ..ops.multigrid import MultigridPreconditioner
 from ..ops.oc import (
     MAX_BISECTION,
     host_median_abs,
@@ -50,10 +59,6 @@ from ..utils.terminal import (
 )
 
 __all__ = ["simp_optimize", "build_voxel_step", "VoxelStep"]
-
-_MULTIGRID_TODO = ("geometric multigrid (preconditioner='auto' or "
-                   "'multigrid') is not ported yet (ROADMAP.md, queue 1: "
-                   "stencil + multigrid); use preconditioner='jacobi'")
 
 
 def _warn_sensitivity_health(frac_neg, max_abs, fsens) -> bool:
@@ -79,19 +84,58 @@ def _warn_sensitivity_health(frac_neg, max_abs, fsens) -> bool:
     return False
 
 
-def _build_preconditioner(op, params):
-    """factory(scale, free_mask) -> M(r)."""
-    choice = params.preconditioner
-    if choice in ("auto", "multigrid"):
-        raise NotImplementedError(_MULTIGRID_TODO)
-    if choice == "none":
-        return lambda scale, mask: (lambda r: r)
+class DiagonalPreconditioner:
+    """Jacobi (M = D^-1) or "none" (M = I) behind the multigrid's
+    interface: the state is the operator diagonal (None for "none") and
+    there are no power vectors to carry."""
 
-    def jacobi_factory(scale, mask):
-        diag = op.diagonal(scale, mask)
+    supports_light_setup = False
+
+    def __init__(self, op: VoxelOperator, jacobi: bool = True):
+        self.op = op
+        self.jacobi = jacobi
+
+    def power_init(self, scale, free_mask):
+        return ()
+
+    def setup(self, scale, free_mask, power_vectors=()):
+        diag = self.op.diagonal(scale, free_mask) if self.jacobi else None
+        return diag, power_vectors
+
+    def make_M(self, diag):
+        if diag is None:
+            return lambda r: r
         return lambda r: r / diag
 
-    return jacobi_factory
+
+def _build_preconditioner(op, params):
+    """(preconditioner, setup_every).  Both kinds have power_init(scale,
+    mask) -> power vectors, setup(scale, mask, power_vectors) -> (state,
+    power vectors) and make_M(state) -> M(r).  Multigrid refreshes its state
+    every `mg_setup_every` iterations; Jacobi and "none" every iteration.
+    "auto" resolves to multigrid when the grid has a coarser level, else to
+    Jacobi; "multigrid" without one warns and falls back to Jacobi
+    (easysimp_tpu/opt/optimize.py:84-126)."""
+    choice = params.preconditioner
+    if choice in ("auto", "multigrid"):
+        def dtype(name):
+            return resolve_dtype(name, op.device) if name else None
+
+        mg = MultigridPreconditioner(
+            op, levels=params.mg_levels, smooth_iters=params.mg_smooth_iters,
+            cycle_dtype=dtype(params.mg_cycle_dtype),
+            galerkin=params.mg_galerkin, cycle=params.mg_cycle,
+            coarsen=params.mg_coarsen,
+            stencil_dtype=dtype(params.mg_stencil_dtype),
+            refresh_iters=params.mg_refresh_iters)
+        if mg.n_levels > 1:
+            return mg, params.mg_setup_every
+        if choice == "multigrid":
+            print_warning(
+                "multigrid requested but grid has no coarsenable levels; "
+                "falling back to Jacobi"
+            )
+    return DiagonalPreconditioner(op, jacobi=choice != "none"), 1
 
 
 @dataclass
@@ -115,13 +159,22 @@ class StepOutput:
 class VoxelStep:
     """The SIMP iteration and its companion state.
 
-    `step(design, u_prev, recycle=None, rtol=None)` runs one full SIMP
-    iteration; `solve(design)` is the final re-analysis; `metrics` the
-    convergence and diagnostic reductions."""
+    `power_init(design)` is the cold estimation of the carried power
+    vectors (multigrid; () otherwise), and `setup(design, pvecs,
+    prev_state=None)` returns (state, new pvecs) of `precond`: a full
+    setup, or multigrid's light one on top of `prev_state`, due every
+    `setup_every` iterations.  `step(design, u_prev, state, recycle=None,
+    rtol=None)` runs one full SIMP iteration with that state; `solve(design,
+    pvecs)` is the final re-analysis; `metrics` the convergence and
+    diagnostic reductions."""
 
     grid: VoxelGrid
     op: VoxelOperator
     filt: Any
+    precond: MultigridPreconditioner | DiagonalPreconditioner
+    setup_every: int
+    power_init: Callable
+    setup: Callable
     step: Callable
     metrics: Callable
     solve: Callable
@@ -152,7 +205,7 @@ def build_voxel_step(grid, loads, boundary_conditions,
     filt = create_filter_cache(grid, params.filter_radius, dtype=dtype,
                                device=device)
     use_density_filter = params.filter_type == "density"
-    precond_factory = _build_preconditioner(op, params)
+    precond, setup_every = _build_preconditioner(op, params)
 
     def dev(a):
         # contiguous: build_load_field returns a transposed view, and a
@@ -175,17 +228,19 @@ def build_voxel_step(grid, loads, boundary_conditions,
                          device=device)
     u0 = torch.zeros((*grid.nnodes_per_axis, 3), dtype=dtype, device=device)
 
-    def forward(design, u_prev, recycle=None, rtol=None):
+    def physical(design):
+        return filt.density_filter(design) if use_density_filter else design
+
+    def forward(design, u_prev, state, recycle=None, rtol=None):
         """filter -> loads -> solve -> energy/volume."""
-        phys = filt.density_filter(design) if use_density_filter else design
+        phys = physical(design)
         scale = op.youngs_modulus(phys)
         f = f_ext
         if acceleration_data is not None:
             f = f + voxel_body_force(phys, accel_vec, base_density, elem_vol)
         f_bc = f * free_mask
         sol = cg_solve(lambda v: op.apply(v, scale, free_mask), f_bc,
-                       x0=u_prev * free_mask,
-                       M=precond_factory(scale, free_mask),
+                       x0=u_prev * free_mask, M=precond.make_M(state),
                        rtol=params.cg_rtol if rtol is None else rtol,
                        maxiter=params.cg_maxiter,
                        deflate=recycle_deflate(free_mask, recycle))
@@ -195,8 +250,9 @@ def build_voxel_step(grid, loads, boundary_conditions,
         volume = phys.sum() * elem_vol
         return phys, sol, energy, volume
 
-    def step(design, u_prev, recycle=None, rtol=None) -> StepOutput:
-        phys, sol, energy, volume = forward(design, u_prev, recycle, rtol)
+    def step(design, u_prev, state, recycle=None, rtol=None) -> StepOutput:
+        phys, sol, energy, volume = forward(design, u_prev, state, recycle,
+                                            rtol)
         sens = op.compliance_sensitivities(sol.u, phys)
         if use_density_filter:
             fsens = filt.chain_rule(sens)
@@ -218,10 +274,26 @@ def build_voxel_step(grid, loads, boundary_conditions,
         max_disp = u.abs().max()
         return (change, grayness, max_disp, *sensitivity_health(fsens))
 
-    def solve(design):
+    def setup(design, pvecs, prev_state=None):
+        """Preconditioner setup on the design's moduli: full, or
+        multigrid's light one on top of prev_state.  Returns (state, new
+        power vectors)."""
+        scale = op.youngs_modulus(physical(design))
+        if prev_state is None:
+            return precond.setup(scale, free_mask, pvecs)
+        return precond.setup_light(scale, free_mask, pvecs, prev_state)
+
+    def power_init(design):
+        """The one-time cold lambda_max estimation on the initial design."""
+        return precond.power_init(op.youngs_modulus(physical(design)),
+                                  free_mask)
+
+    def solve(design, pvecs):
         """Final analysis (Optimization.jl:494-539): re-filter + re-solve
-        from a cold start."""
-        phys, sol, energy, _ = forward(design, torch.zeros_like(u0))
+        from a cold start, after a full setup from the carried power
+        vectors."""
+        state = setup(design, pvecs)[0]
+        phys, sol, energy, _ = forward(design, torch.zeros_like(u0), state)
         return phys, sol.u, energy
 
     def element_energy(phys, u):
@@ -229,7 +301,9 @@ def build_voxel_step(grid, loads, boundary_conditions,
         return 0.5 * op.youngs_modulus(phys) * op.element_energies_unit(u)
 
     return VoxelStep(
-        grid=grid, op=op, filt=filt, step=step, metrics=metrics, solve=solve,
+        grid=grid, op=op, filt=filt, precond=precond,
+        setup_every=setup_every, power_init=power_init, setup=setup,
+        step=step, metrics=metrics, solve=solve,
         element_energy=element_energy, design0=design0, u0=u0,
         vol_sens=vol_sens, elem_vol=elem_vol, total_volume=total_volume,
         dtype=dtype, device=device)
@@ -315,6 +389,19 @@ def simp_optimize(grid, loads, boundary_conditions,
                    max(params.cg_rtol, params.cg_forcing_coeff * change_prev))
 
     rtol_now = _forcing_rtol(None) if adaptive_forcing else None
+
+    # Preconditioner state: the carried power vectors (multigrid's cold
+    # estimation once, here) and the state with its setup cadence and the
+    # CG watchdog.
+    pvecs = vs.power_init(design)
+    light_ok = (vs.precond.supports_light_setup
+                and params.mg_full_setup_every > 1)
+    state = None
+    last_setup_it = 0
+    last_full_it = 0
+    cg_baseline = None        # CG count of the first solve after a full setup
+    cg_since_refresh = None   # CG count of the most recent solve
+
     energy_history: list[float] = []
     volume_history: list[float] = []
     change_history: list[float] = []
@@ -328,7 +415,23 @@ def simp_optimize(grid, loads, boundary_conditions,
     for it in range(1, params.max_iterations + 1):
         iteration = it
         t0 = time.perf_counter()
-        out = vs.step(design, u, recycle=rhist, rtol=rtol_now)
+        # Refresh the preconditioner every setup_every iterations (CG
+        # always applies the current operator), at once when the last solve
+        # degraded; between multigrid's full setups only the fine half.
+        stale_steps = it - last_setup_it if state is not None else 0
+        degraded = (cg_since_refresh is not None and cg_baseline
+                    and cg_since_refresh > max(1.5 * cg_baseline,
+                                               cg_baseline + 3))
+        if state is None or stale_steps >= vs.setup_every or degraded:
+            if (light_ok and state is not None and not degraded
+                    and it - last_full_it < params.mg_full_setup_every):
+                state, pvecs = vs.setup(design, pvecs, state)
+            else:
+                state, pvecs = vs.setup(design, pvecs)
+                last_full_it = it
+                cg_baseline = None
+            last_setup_it = it
+        out = vs.step(design, u, state, recycle=rhist, rtol=rtol_now)
         if rhist is not None:
             rhist = recycle_push(rhist, out.u)
         (change, grayness, max_disp, frac_neg, _mean_abs, max_abs) = \
@@ -345,6 +448,9 @@ def simp_optimize(grid, loads, boundary_conditions,
         volume_history.append(volume)
         change_history.append(change)
         cg_history.append(out.cg_iters)
+        cg_since_refresh = out.cg_iters
+        if cg_baseline is None:
+            cg_baseline = cg_since_refresh
         # float() above waited for the device: this is the iteration's time
         iteration_seconds.append(time.perf_counter() - t0)
 
@@ -380,7 +486,7 @@ def simp_optimize(grid, loads, boundary_conditions,
             break
 
     # ----- final analysis (Optimization.jl:494-539) -------------------------
-    phys, u, final_energy = vs.solve(design)
+    phys, u, final_energy = vs.solve(design, pvecs)
     final_energy = float(final_energy)
     final_volume = float(phys.sum()) * elem_vol
 

@@ -2,7 +2,7 @@
 
 Field for field the same as easysimp_tpu/params.py, so that `carry.py` can
 copy a reference parameter object by attribute.  Fields that select parts of
-the reference not yet ported (multigrid, continuation, checkpoints, exports,
+the reference not yet ported (continuation, checkpoints, exports,
 `material_model`) are kept with their defaults; `simp_optimize` raises
 `NotImplementedError` when one of them asks for the missing part.  Their
 meaning is documented in easysimp_tpu/params.py.
@@ -68,9 +68,9 @@ class OptimizationParameters:
     cg_rtol_max: float = 1e-3           # loosest adaptive tolerance
     cg_forcing_coeff: float = 0.05      # rtol_i = coeff * change_{i-1}
     preconditioner: str = "auto"        # auto|jacobi|block_jacobi|amg|multigrid|none
-                                        # ("auto"/"multigrid" not ported yet)
 
-    # Unstructured AMG and multigrid knobs (not ported yet)
+    # Unstructured AMG knobs (the AMG is not ported yet) and the voxel
+    # geometric multigrid's knobs (ops/multigrid.py)
     amg_max_coarse_dofs: int = 6000
     amg_smooth_prolongator: bool = False
     mg_levels: int = 0

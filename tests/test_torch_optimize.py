@@ -1,6 +1,7 @@
 """The port's SIMP loop end to end against the JAX package and against
 the scipy direct-solve reference (tests/reference_impl.py), on the
-10x6x2 cantilever of tests/test_optimize.py in float64 with Jacobi PCG."""
+cantilevers of tests/test_optimize.py in float64, with Jacobi PCG and with
+geometric multigrid."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import pytest
 import easysimp_tpu as et
 import easysimp_tpu_torch as pt
 from easysimp_tpu_torch.carry import params_from_reference
+from easysimp_tpu_torch.opt.optimize import DiagonalPreconditioner
 from reference_impl import simp_optimize_reference
 
 
@@ -23,13 +25,35 @@ def _cantilever(mod, nels=(10, 6, 2)):
     return grid, [load], [bc]
 
 
-def _run_both(**kw):
-    params = et.OptimizationParameters(
+def _params(**kw):
+    kw = {"preconditioner": "jacobi", "max_iterations": 10,
+          "dtype": "float64", **kw}
+    return et.OptimizationParameters(
         E0=200.0, Emin=1e-6, nu=0.3, p=3.0, volume_fraction=0.4,
-        max_iterations=10, tolerance=0.01, filter_radius=1.5,
-        dtype="float64", preconditioner="jacobi", **kw)
-    grid_r, loads_r, bcs_r = _cantilever(et)
-    grid_p, loads_p, bcs_p = _cantilever(pt)
+        tolerance=0.01, filter_radius=1.5, **kw)
+
+
+def _run_port(params, nels=(10, 6, 2)):
+    return pt.simp_optimize(*_cantilever(pt, nels),
+                            params_from_reference(params), device="cpu")
+
+
+def _direct(grid, loads, bcs, params, filter_type="sensitivity"):
+    f = grid.dofs_flat(np.asarray(et.build_load_field(grid, loads)))
+    mask = grid.dofs_flat(et.build_free_mask(grid, bcs))
+    return simp_optimize_reference(
+        grid.node_coords, grid.hex_connectivity, np.nonzero(mask == 0)[0], f,
+        E0=params.E0, Emin=params.Emin, nu=params.nu, p=params.p,
+        volume_fraction=params.volume_fraction,
+        max_iterations=params.max_iterations, tolerance=params.tolerance,
+        filter_radius_ratio=params.filter_radius, filter_type=filter_type,
+        move=params.move_limit, damping=params.damping)
+
+
+def _run_both(nels=(10, 6, 2), **kw):
+    params = _params(**kw)
+    grid_r, loads_r, bcs_r = _cantilever(et, nels)
+    grid_p, loads_p, bcs_p = _cantilever(pt, nels)
     res_r = et.simp_optimize(grid_r, loads_r, bcs_r, params)
     res_p = pt.simp_optimize(grid_p, loads_p, bcs_p,
                              params_from_reference(params), device="cpu")
@@ -54,15 +78,7 @@ def test_trajectory_matches_jax_and_direct_solve(filter_type):
                                res_r.stresses.von_mises, rtol=1e-6,
                                atol=1e-10)
 
-    f = grid.dofs_flat(np.asarray(et.build_load_field(grid, loads)))
-    mask = grid.dofs_flat(et.build_free_mask(grid, bcs))
-    ref = simp_optimize_reference(
-        grid.node_coords, grid.hex_connectivity, np.nonzero(mask == 0)[0], f,
-        E0=params.E0, Emin=params.Emin, nu=params.nu, p=params.p,
-        volume_fraction=params.volume_fraction,
-        max_iterations=params.max_iterations, tolerance=params.tolerance,
-        filter_radius_ratio=params.filter_radius, filter_type=filter_type,
-        move=params.move_limit, damping=params.damping)
+    ref = _direct(grid, loads, bcs, params, filter_type)
     np.testing.assert_allclose(res_p.energy_history, ref["energies"],
                                rtol=1e-6)
     np.testing.assert_allclose(res_p.densities, ref["final_densities"],
@@ -104,9 +120,98 @@ def test_logger_files(tmp_path):
     assert "Iterations:       2" in summary
 
 
+@pytest.mark.parametrize("precond", ["multigrid", "auto"])
+def test_multigrid_trajectory_matches_jax_and_direct_solve(precond):
+    """Geometric multigrid (what "auto" resolves to here) on the 10x6x4
+    cantilever: energies rtol 1e-8 against the JAX package with CG counts
+    within 1 per solve, and rtol 1e-6 against the direct solve."""
+    grid, loads, bcs, params, res_r, res_p = _run_both(
+        nels=(10, 6, 4), preconditioner=precond, cg_rtol=1e-12,
+        max_iterations=7)
+    assert res_p.iterations == res_r.iterations
+    np.testing.assert_allclose(res_p.cg_iterations_history,
+                               res_r.cg_iterations_history, rtol=0, atol=1)
+    np.testing.assert_allclose(res_p.energy_history, res_r.energy_history,
+                               rtol=1e-8)
+    np.testing.assert_allclose(res_p.densities, res_r.densities, atol=1e-7)
+    ref = _direct(grid, loads, bcs, params)
+    np.testing.assert_allclose(res_p.energy_history, ref["energies"],
+                               rtol=1e-6)
+    assert np.isclose(res_p.energy, ref["final_energy"], rtol=1e-6)
+
+
+def test_light_setup_cadence_matches_jax(monkeypatch):
+    """The bench's setup cadence (light setup between full ones every 3,
+    three levels) with an 8-slot recycle ring and adaptive forcing, against
+    the JAX package: CG counts within 1, energies rtol 1e-8 (tight adaptive
+    tolerances, as test_recycled_adaptive_jacobi_matches_jax)."""
+    monkeypatch.setenv("EASYSIMP_MAX_COARSE_DOFS", "500")
+    _, _, _, _, res_r, res_p = _run_both(
+        nels=(16, 8, 8), preconditioner="multigrid", max_iterations=6,
+        mg_full_setup_every=3, mg_smooth_iters=(1, 2), cg_rtol=1e-12,
+        cg_rtol_max=1e-9, cg_forcing="adaptive", cg_recycle_k=8)
+    np.testing.assert_allclose(res_p.cg_iterations_history,
+                               res_r.cg_iterations_history, rtol=0, atol=1)
+    np.testing.assert_allclose(res_p.energy_history, res_r.energy_history,
+                               rtol=1e-8)
+
+
+@pytest.mark.parametrize("setup_every,recycle_k", [(3, 0), (2, 3)])
+def test_stale_preconditioner_trajectory_matches(setup_every, recycle_k):
+    """Ports of tests/test_optimize.py:190 and :212: a preconditioner
+    rebuilt only every `setup_every` iterations (CG still applies the
+    current operator), with and without recycling, reproduces the
+    refresh-every-iteration trajectory to solver tolerance."""
+    def run(every):
+        return _run_port(_params(
+            preconditioner="multigrid", cg_rtol=1e-12, max_iterations=7,
+            mg_setup_every=every, cg_recycle_k=recycle_k), (10, 6, 4))
+
+    res1, res_n = run(1), run(setup_every)
+    np.testing.assert_allclose(res_n.energy_history, res1.energy_history,
+                               rtol=1e-8)
+    np.testing.assert_allclose(res_n.densities, res1.densities, rtol=1e-7,
+                               atol=1e-9)
+
+
+def test_bench_config_trajectory_parity():
+    """Port of tests/test_optimize.py:234: the bench composition in float32
+    (Galerkin V(1,2), bfloat16 cycle interior, recycled CG) tracks the
+    float64 direct solve, energies rtol 2e-4, volumes rtol 1e-5."""
+    params = _params(max_iterations=8, dtype="float32", cg_rtol=1e-6,
+                     preconditioner="multigrid", mg_smooth_iters=(1, 2),
+                     mg_cycle_dtype="bfloat16", cg_recycle_k=4)
+    res = _run_port(params, (10, 6, 4))
+    ref = _direct(*_cantilever(et, (10, 6, 4)), params)
+    np.testing.assert_allclose(res.energy_history, ref["energies"],
+                               rtol=2e-4)
+    np.testing.assert_allclose(res.volume_history, ref["volumes"],
+                               rtol=1e-5)
+
+
+def test_auto_without_levels_is_jacobi(capsys):
+    """On a grid with no coarser level (odd element counts) "auto" is
+    Jacobi; "multigrid" warns and falls back to Jacobi."""
+    nels = (5, 3, 3)
+    runs = {p: _run_port(_params(preconditioner=p, cg_rtol=1e-12,
+                                 max_iterations=3), nels)
+            for p in ("jacobi", "auto")}
+    assert "falling back" not in capsys.readouterr().out
+    runs["multigrid"] = _run_port(_params(
+        preconditioner="multigrid", cg_rtol=1e-12, max_iterations=3), nels)
+    assert "falling back to Jacobi" in capsys.readouterr().out
+    for p in ("auto", "multigrid"):
+        assert runs[p].energy_history == runs["jacobi"].energy_history
+        assert runs[p].cg_iterations_history == \
+            runs["jacobi"].cg_iterations_history
+    vs = pt.build_voxel_step(*_cantilever(pt, nels),
+                             params_from_reference(_params(
+                                 preconditioner="auto")), device="cpu")
+    assert isinstance(vs.precond, DiagonalPreconditioner)
+    assert vs.precond.jacobi and vs.setup_every == 1
+
+
 @pytest.mark.parametrize("kw", [
-    dict(preconditioner="auto"),
-    dict(preconditioner="multigrid"),
     dict(preconditioner="jacobi", export_interval=2, export_path="unused"),
     dict(preconditioner="jacobi", continuation_levels=1),
     dict(preconditioner="jacobi", checkpoint_path="unused.npz"),
