@@ -47,6 +47,37 @@ Phases, each of which asserts and prints a line:
               rtol 1e-9) and float32 (rtol 5e-4); multigrid float64 (as
               preconditioner="auto" resolves; also against the CPU, rtol
               1e-9) and float32 with a bfloat16 cycle (rtol 5e-4).
+  9. lame:    the two-field Lamé operator of a `material_model`:
+              `apply_K_lame` (two `voxel_matvec` launches, with ke_lam and
+              ke_mu) and `element_energies_lame` (two `voxel_energies`
+              launches) against their plain versions on the card, at
+              37x19x11 and 128^3, float64 and float32, with random positive
+              Lamé fields and with lam = 0; the launch counters rise by 2
+              per call; two runs bitwise equal; a CUDA graph of the call
+              replays to the eager result; apply_K_lame(u, lam(E), mu(E))
+              against apply_K(u, E); at 128^3 float32 the two-launch route
+              and the plain route are timed (CUDA-graph replays);
+ 10. main-lame: the main-mg composition with material_model = the SIMP
+              closure, 5 SIMP iterations, three runs in turns with three
+              of the same 5 iterations without it: energies against
+              main-mg's first 5 (rtol 5e-3, the accuracy of solves that
+              stop at 1e-3; at 24x12x12 with every solve at 1e-5, rtol
+              5e-4), CG < 500, volume fraction 0.3, float32 matvec launches
+              1.5-2x the default run's, energies launches exactly twice,
+              seconds for the 5 iterations of each; then 3 iterations of a
+              RAMP law whose Poisson ratio depends on the density: finite,
+              energy falling, CG < 500;
+ 11. continuation: main-mg with continuation_levels=1 (a 64^3 stage of 10
+              iterations), 3 fine iterations: the prolonged design's volume
+              fraction, CG and seconds of the first fine iteration beside
+              main-mg's cold first iteration;
+ 12. io:      at 24x12x12 float64 on the card (multigrid, 8-slot recycle
+              ring) 6 iterations against 3, a checkpoint and 3 resumed:
+              energies rtol 1e-10, densities atol 1e-12; a 4-iteration run
+              with profile_dir leaves a trace; at 128^3 the main-mg result
+              exported with export_results_vtu (seconds, bytes) and read
+              back, and one checkpoint of the main-mg state saved and
+              loaded (seconds, bytes).
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -58,7 +89,8 @@ accuracy (float32 storage: three TF32 products of 2 x 576 flops per element
 at 495 TFLOP/s; bfloat16 storage, whose values are exact in bfloat16: ke
 split into three bfloat16 pieces, three bfloat16 products at 989 TFLOP/s)
 plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
-launches are those of the main-mg run.
+launches are those of the main-mg run; `launches_lame` those of one
+main-lame run (5 iterations with the SIMP closure).
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -72,8 +104,10 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,6 +191,20 @@ def bound(nbytes, tensor_flops, cuda_flops, tensor_rate=TF32_FLOPS):
                                  else "operations")
 
 
+def agree(got, want, kind, t):
+    """(ok, max_abs_err, max|want|) of `got` against `want` in float64:
+    kind "rtol/atol" holds |got - want| <= t + t |want| elementwise, any
+    other kind max|got - want| <= t max|want|; `got` must be finite."""
+    got64, want64 = got.double(), want.double()
+    err = float((got64 - want64).abs().max())
+    ref = float(want64.abs().max())
+    if kind == "rtol/atol":
+        ok = bool(torch.all((got64 - want64).abs() <= t + t * want64.abs()))
+    else:
+        ok = err <= t * ref
+    return ok and bool(torch.isfinite(got64).all()), err, ref
+
+
 def check_kernels(pt, ck):
     """Phase 3.  Returns {kernel: dict} at 128^3 float32, the main path's
     shape and dtype."""
@@ -193,15 +241,7 @@ def check_kernels(pt, ck):
                 assert got.dtype == want.dtype == dtype
                 assert got.shape == want.shape
                 same = torch.equal(got, again)
-                got64, want64 = got.double(), want.double()
-                err = float((got64 - want64).abs().max())
-                ref = float(want64.abs().max())
-                if kind == "rtol/atol":
-                    ok = bool(torch.all((got64 - want64).abs()
-                                        <= t + t * want64.abs()))
-                else:
-                    ok = err <= t * ref
-                ok = ok and bool(torch.isfinite(got64).all())
+                ok, err, ref = agree(got, want, kind, t)
                 phase("kernels", f"{name} {nels} {str(dtype)[6:]}: "
                       f"max_abs_err {err:.3e} (max|out| {ref:.3e}, "
                       f"tol {t:g} {kind}), two launches bitwise equal: "
@@ -706,7 +746,340 @@ def run_main_mg(pt, ck):
     assert all(c < 500 for c in timed_res.cg_iterations_history)
     assert mv[torch.float32] > 0 and mv[torch.bfloat16] > 0, by_dtype
     assert ck.voxel_energies.launches > 0
+    return launches, grid, res
+
+
+def counted_run(pt, ck, problem, params, **kw):
+    """simp_optimize on the card with both kernels' counters set to 0 just
+    before: (result, {kernel: launches}, {matvec storage dtype: launches})."""
+    for fn in (ck.voxel_matvec, ck.voxel_energies):
+        fn.launches = 0
+        fn.launches_by_dtype.clear()
+    res = pt.simp_optimize(*problem, params, **kw)  # device="cuda"
+    torch.cuda.synchronize()
+    launches = {"voxel_matvec": ck.voxel_matvec.launches,
+                "voxel_energies": ck.voxel_energies.launches}
+    return res, launches, dict(ck.voxel_matvec.launches_by_dtype)
+
+
+def check_lame(pt, ck):
+    """Phase 9."""
+    from easysimp_tpu_torch.ops.elements import lame_parameters
+    from easysimp_tpu_torch.ops.operator import VoxelOperator
+
+    tol = {torch.float64: ("rtol/atol", 1e-12, 1e-11),
+           torch.float32: ("of max|out|", 1e-5, 1e-5)}
+
+    for nels in [(37, 19, 11), (128, 128, 128)]:
+        grid = pt.generate_grid(nels, (0.0, 0.0, 0.0), (1.6, 1.1, 0.9))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        rand = lambda shape: torch.rand(  # noqa: E731
+            shape, generator=gen, dtype=torch.float64, device="cuda")
+        u64 = 2.0 * rand((*grid.nnodes_per_axis, 3)) - 1.0
+        lam64, mu64, rho64 = (0.05 + 0.95 * rand(grid.nels)
+                              for _ in range(3))
+        for dtype, (kind, tol_mv, tol_en) in tol.items():
+            op = VoxelOperator(grid, E0=3.0, Emin=1e-9, nu=0.3, p=3.0,
+                               dtype=dtype, device="cuda")
+            u, mu = u64.to(dtype), mu64.to(dtype)
+            ke_lam, ke_mu = op.ke_lame_basis
+            for case, lam in [("random lam, mu", lam64.to(dtype)),
+                              ("lam = 0", torch.zeros_like(mu))]:
+                n0 = ck.voxel_matvec.launches
+                got = op.apply_K_lame(u, lam, mu)
+                again = op.apply_K_lame(u, lam, mu)
+                assert ck.voxel_matvec.launches == n0 + 4
+                ok, err, ref = agree(got, op.apply_K_lame_plain(u, lam, mu),
+                                     kind, tol_mv)
+                same = torch.equal(got, again)
+                phase("lame", f"apply_K_lame {nels} {str(dtype)[6:]} "
+                      f"{case}: max_abs_err {err:.3e} (max|out| {ref:.3e}, "
+                      f"tol {tol_mv:g} {kind}), 2 launches per call, two "
+                      f"runs bitwise equal: {same} "
+                      f"{'ok' if ok and same else 'FAIL'}")
+                assert ok and same
+            n0 = ck.voxel_energies.launches
+            wl, wm = op.element_energies_lame(u)
+            wl2, wm2 = op.element_energies_lame(u)
+            assert ck.voxel_energies.launches == n0 + 4
+            for name, w, w2, ke in [("lam", wl, wl2, ke_lam),
+                                    ("mu", wm, wm2, ke_mu)]:
+                ok, err, ref = agree(w, ck.voxel_energies_plain(u, ke), kind,
+                                     tol_en)
+                same = torch.equal(w, w2)
+                phase("lame", f"element_energies_lame[{name}] {nels} "
+                      f"{str(dtype)[6:]}: max_abs_err {err:.3e} (max|out| "
+                      f"{ref:.3e}, tol {tol_en:g} {kind}), bitwise repeat "
+                      f"{same} {'ok' if ok and same else 'FAIL'}")
+                assert ok and same
+            # the SIMP law through the Lamé route is the one-field operator
+            E = op.youngs_modulus(rho64).to(dtype)
+            lam_E, mu_E = lame_parameters(E, op.nu)
+            ok, err, ref = agree(op.apply_K_lame(u, lam_E, mu_E),
+                                 op.apply_K(u, E), kind, tol_mv)
+            phase("lame", f"apply_K_lame(u, lam(E), mu(E)) vs apply_K(u, E) "
+                  f"{nels} {str(dtype)[6:]}: max_abs_err {err:.3e} (max|out| "
+                  f"{ref:.3e}, tol {tol_mv:g} {kind}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            assert ok
+            if nels == (37, 19, 11):
+                # each of the two launches sees its own ke inside a graph
+                # too (the float64 kernels copy ke to __constant__ memory
+                # per launch)
+                lam = lam64.to(dtype)
+                eager = op.apply_K_lame(u, lam, mu)
+                torch.cuda.synchronize()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    out = op.apply_K_lame(u, lam, mu)
+                out.zero_()
+                g.replay()
+                torch.cuda.synchronize()
+                same = torch.equal(out, eager)
+                phase("lame", f"apply_K_lame {nels} {str(dtype)[6:]} as a "
+                      f"CUDA graph: replay bitwise equal to the eager call: "
+                      f"{same} {'ok' if same else 'FAIL'}")
+                assert same
+            if nels == (128, 128, 128) and dtype == torch.float32:
+                lam = lam64.to(dtype)
+                ms, plain_ms = interleaved_ms([
+                    lambda: op.apply_K_lame(u, lam, mu),
+                    lambda: op.apply_K_lame_plain(u, lam, mu)])
+                en_ms, = interleaved_ms([
+                    lambda: op.element_energies_lame(u)])
+                phase("lame", f"128^3 float32 (CUDA-graph replays): "
+                      f"apply_K_lame, two launches and their sum, "
+                      f"{ms:.4f} ms; apply_K_lame_plain {plain_ms:.4f} ms; "
+                      f"element_energies_lame, two launches, {en_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+
+def ramp_material_model(pt):
+    """RAMP interpolation (q = 4) with a density-dependent Poisson ratio:
+    a law the one-field operator cannot express."""
+    def model(rho):
+        E = 1e-6 + rho / (1.0 + 4.0 * (1.0 - rho))
+        return pt.lame_parameters(E, 0.25 + 0.1 * rho)
+    return model
+
+
+def run_main_lame(pt, ck, mg_res):
+    """Phase 10.  Returns the launches of one run with the SIMP closure."""
+    problem = cantilever(pt, (128, 128, 128))
+    total = problem[0].total_volume
+    base = main_mg_params(pt, iterations=5)
+    lame = dataclasses.replace(
+        base, material_model=pt.create_simp_material_model(1.0, 0.3, 1e-9,
+                                                           3.0))
+    # the process's first forward-mode derivative builds PyTorch's
+    # decompositions for it, once: keep that out of the iterations' times
+    t0 = time.perf_counter()
+    rho = torch.full((2, 2, 2), 0.5, device="cuda")
+    torch.func.jvp(lame.material_model, (rho,), (torch.ones_like(rho),))
+    torch.cuda.synchronize()
+    phase("main-lame", f"first torch.func.jvp of the process: "
+          f"{time.perf_counter() - t0:.2f} s (once)")
+    runs = {"default": [], "lame": []}
+    for name in ("default", "lame", "lame", "default", "default", "lame"):
+        runs[name].append(counted_run(
+            pt, ck, problem, base if name == "default" else lame))
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
+    for name, rs in runs.items():
+        for res, launches, by_dtype in rs:
+            phase("main-lame", f"128^3 float32 multigrid, {name}: "
+                  f"seconds/iteration {fmt(res.iteration_seconds)} (sum "
+                  f"{sum(res.iteration_seconds):.4f}), CG "
+                  f"{res.cg_iterations_history}, launches {launches}, "
+                  f"matvec by storage dtype "
+                  f"{ {str(k)[6:]: v for k, v in by_dtype.items()} }")
+    # a run's 5 iterations differ in CG count, so compare whole runs
+    sums = {name: sorted(sum(res.iteration_seconds) for res, _, _ in rs)
+            for name, rs in runs.items()}
+    phase("main-lame", f"  seconds for the 5 iterations, three runs of each "
+          f"in turns: default {fmt(sums['default'])}, lame "
+          f"{fmt(sums['lame'])}; medians {sums['default'][1]:.4f} and "
+          f"{sums['lame'][1]:.4f} "
+          f"({100 * (sums['lame'][1] / sums['default'][1] - 1):+.1f}%), "
+          f"least {sums['default'][0]:.4f} and {sums['lame'][0]:.4f} "
+          f"({100 * (sums['lame'][0] / sums['default'][0] - 1):+.1f}%)")
+    res, launches, by_dtype = runs["lame"][0]
+    _, launches_d, by_dtype_d = runs["default"][0]
+    vol_fracs = [v / total for v in res.volume_history]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(res.energy_history, mg_res.energy_history))
+    cg = sum(res.cg_iterations_history)
+    cg_d = sum(runs["default"][0][0].cg_iterations_history)
+    phase("main-lame", f"  energy {res.energy_history}: max rel diff to "
+          f"main-mg's first 5 {rel:.3e} (tol 5e-3), volume fraction "
+          f"{vol_fracs}; float32 matvec launches per CG iteration "
+          f"{by_dtype[torch.float32] / cg:.2f} against "
+          f"{by_dtype_d[torch.float32] / cg_d:.2f} without the model")
+    assert res.iterations == 5 and len(res.energy_history) == 5
+    # 5e-3: this composition stops its solves at a relative residual of
+    # 1e-3 (the first) to 1e-5, and the two runs' bfloat16 cycles round
+    # differently, so their energies agree to about that 1e-3 and no
+    # better (they were 2.0e-3 apart on an H100); the small run below
+    # holds the closure to 5e-4 with every solve at 1e-5
+    assert rel <= 5e-3
+    assert all(abs(v - 0.3) <= 1e-4 for v in vol_fracs), vol_fracs
+    for rs in runs.values():
+        for r, _, _ in rs:
+            assert all(c < 500 for c in r.cg_iterations_history)
+            assert np.all(np.isfinite(r.densities))
+    assert 1.5 * by_dtype_d[torch.float32] <= by_dtype[torch.float32] \
+        <= 2.0 * by_dtype_d[torch.float32], (by_dtype, by_dtype_d)
+    # two launches per iteration and two for the final element energies
+    assert launches["voxel_energies"] == 2 * launches_d["voxel_energies"] \
+        == 2 * (res.iterations + 1), (launches, launches_d)
+
+    small = cantilever(pt, (24, 12, 12))
+    tight = dataclasses.replace(base, max_iterations=3, cg_forcing="fixed",
+                                cg_recycle_k=0)
+    want = pt.simp_optimize(*small, tight)
+    got = pt.simp_optimize(*small, dataclasses.replace(
+        tight, material_model=lame.material_model))
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(got.energy_history, want.energy_history))
+    ok = len(got.energy_history) == 3 and rel <= 5e-4
+    phase("main-lame", f"  24x12x12 float32, bfloat16 cycle, every solve at "
+          f"rtol 1e-5, with the SIMP closure against without: energy max "
+          f"rel diff {rel:.3e} (tol 5e-4), CG {got.cg_iterations_history} "
+          f"vs {want.cg_iterations_history} {'ok' if ok else 'FAIL'}")
+    assert ok
+
+    ramp = dataclasses.replace(main_mg_params(pt, iterations=3),
+                               material_model=ramp_material_model(pt))
+    res_r, launches_r, _ = counted_run(pt, ck, problem, ramp)
+    phase("main-lame", f"RAMP law with nu(rho) = 0.25 + 0.1 rho: "
+          f"seconds/iteration {fmt(res_r.iteration_seconds)}, CG "
+          f"{res_r.cg_iterations_history}, energy {res_r.energy_history}, "
+          f"launches {launches_r}")
+    assert all(math.isfinite(e) for e in res_r.energy_history)
+    assert res_r.energy_history == sorted(res_r.energy_history, reverse=True)
+    assert all(c < 500 for c in res_r.cg_iterations_history)
+    assert np.all(np.isfinite(res_r.densities))
+    assert np.all(np.isfinite(res_r.stresses.von_mises))
     return launches
+
+
+def run_continuation(pt, ck, mg_res):
+    """Phase 11."""
+    problem = cantilever(pt, (128, 128, 128))
+    params = dataclasses.replace(main_mg_params(pt, iterations=3),
+                                 continuation_levels=1,
+                                 continuation_iters=10)
+    t0 = time.perf_counter()
+    res, launches, _ = counted_run(pt, ck, problem, params)
+    wall = time.perf_counter() - t0
+    vf = res.volume_history[0] / problem[0].total_volume
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
+    phase("continuation", f"128^3 float32 from a 64^3 stage of 10 "
+          f"iterations: volume fraction of the prolonged design {vf:.8f}, "
+          f"fine seconds/iteration {fmt(res.iteration_seconds)}, CG "
+          f"{res.cg_iterations_history}, energy {res.energy_history}; cold "
+          f"main-mg iteration 1: {mg_res.iteration_seconds[0]:.4f} s, CG "
+          f"{mg_res.cg_iterations_history[0]}, energy "
+          f"{mg_res.energy_history[0]}; total {wall:.2f} s (coarse stage "
+          f"and final analysis included), launches {launches}")
+    assert res.iterations == 3
+    assert abs(vf - 0.3) <= 1e-6, vf
+    assert all(math.isfinite(e) for e in res.energy_history)
+    assert all(c < 500 for c in res.cg_iterations_history)
+    # the developed start is stiffer than the uniform one
+    assert res.energy_history[0] < mg_res.energy_history[0]
+    assert np.all(np.isfinite(res.densities))
+
+
+def check_io(pt, ck, grid_mg, res_mg):
+    """Phase 12."""
+    from easysimp_tpu_torch.opt import checkpoint
+    from easysimp_tpu_torch.post.vtu import read_vtu
+
+    small = cantilever(pt, (24, 12, 12))
+
+    def params(**kw):
+        return pt.OptimizationParameters(
+            E0=1.0, Emin=1e-9, nu=0.3, p=3.0, volume_fraction=0.3,
+            filter_radius=1.5, dtype="float64", tolerance=1e-12,
+            preconditioner="multigrid", mg_smooth_iters=(1, 2),
+            cg_rtol=1e-10, cg_recycle_k=8, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = pt.simp_optimize(*small, params(max_iterations=6))
+        path = os.path.join(tmp, "ckpt")
+        pt.simp_optimize(*small, params(max_iterations=3,
+                                        checkpoint_interval=3,
+                                        checkpoint_path=path))
+        resumed = pt.simp_optimize(*small, params(max_iterations=6),
+                                   resume_from=path)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(resumed.energy_history, full.energy_history))
+        dens = float(np.abs(resumed.densities - full.densities).max())
+        ok = (len(resumed.energy_history) == 6 and rel <= 1e-10
+              and dens <= 1e-12 and len(resumed.iteration_seconds) == 3)
+        phase("io", f"24x12x12 float64 multigrid, 8-slot ring: 3 iterations, "
+              f"checkpoint, 3 resumed against 6 uninterrupted: energy max "
+              f"rel diff {rel:.3e} (tol 1e-10), densities max abs diff "
+              f"{dens:.3e} (tol 1e-12), CG {resumed.cg_iterations_history} "
+              f"vs {full.cg_iterations_history} {'ok' if ok else 'FAIL'}")
+        assert ok
+
+        prof = os.path.join(tmp, "prof")
+        pt.simp_optimize(*small, params(max_iterations=4, profile_dir=prof))
+        traces = os.listdir(prof)
+        size = os.path.getsize(os.path.join(prof, traces[0]))
+        phase("io", f"profile_dir: {traces} {size} bytes")
+        assert len(traces) == 1 and size > 0
+
+        # 128^3: the main-mg result as a results VTU, and back
+        t0 = time.perf_counter()
+        out = pt.export_results_vtu(
+            pt.create_results_data(grid_mg, res_mg),
+            os.path.join(tmp, "main_mg"))
+        vtu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_vtu(out)
+        read_s = time.perf_counter() - t0
+        phase("io", f"export_results_vtu 128^3 ({grid_mg.n_cells} cells, "
+              f"{grid_mg.n_nodes} nodes): {vtu_s:.2f} s on the host, "
+              f"{os.path.getsize(out)} bytes; read_vtu {read_s:.2f} s")
+        assert np.array_equal(back.cell_data["density"], res_mg.densities)
+        assert np.array_equal(
+            back.point_data["displacement"].reshape(-1),
+            res_mg.displacements)
+        del back
+
+        # 128^3: one checkpoint of the main-mg state (design, u, 5 power
+        # vectors, 8-slot ring), as iteration 1 of the main path saves it
+        seconds = []
+        save = checkpoint.save_checkpoint
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        checkpoint.save_checkpoint = timed_save
+        try:
+            path = os.path.join(tmp, "big")
+            pt.simp_optimize(*cantilever(pt, (128, 128, 128)),
+                             dataclasses.replace(
+                                 main_mg_params(pt, iterations=1),
+                                 checkpoint_interval=1,
+                                 checkpoint_path=path))
+        finally:
+            checkpoint.save_checkpoint = save
+        t0 = time.perf_counter()
+        state = checkpoint.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        phase("io", f"checkpoint 128^3 (float64 .npz, compressed): saved in "
+              f"{seconds[0]:.2f} s, "
+              f"{os.path.getsize(path + '.npz')} bytes, loaded in "
+              f"{load_s:.2f} s; {len(state['pvecs'])} power vectors, ring "
+              f"{state['recycle'].shape}")
+        assert state["iteration"] == 1 and state["recycle"].shape[0] == 8
+        assert state["design"].shape == (128, 128, 128)
 
 
 # Trace groups for the kernels launched inside these ranges (the innermost
@@ -900,12 +1273,16 @@ def main() -> int:
         timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
         run_main_path(pt, ck)
         check_multigrid(pt, ck)
-        launches = run_main_mg(pt, ck)
+        launches, grid_mg, res_mg = run_main_mg(pt, ck)
         run_e2e_check(pt, ck)
+        check_lame(pt, ck)
+        launches_lame = run_main_lame(pt, ck, res_mg)
+        run_continuation(pt, ck, res_mg)
+        check_io(pt, ck, grid_mg, res_mg)
         kernels = [{
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            **timing[name],
+            "launches_lame": launches_lame[name], **timing[name],
         } for name in ("voxel_matvec", "voxel_energies")]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

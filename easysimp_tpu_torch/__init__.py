@@ -34,10 +34,19 @@ from .loads import (
     build_load_field,
     get_boundary_facets,
 )
-from .ops.elements import hex8_stiffness, lame_parameters, simp_youngs_modulus
+from .ops.elements import (
+    create_material_model,
+    create_simp_material_model,
+    hex8_stiffness,
+    lame_parameters,
+    simp_youngs_modulus,
+)
 from .ops.filters import VoxelFilter, create_filter_cache
 from .ops.operator import VoxelOperator
 from .opt.optimize import build_voxel_step, simp_optimize
+from .opt.verify_sensitivities import verify_sensitivities
+from .post.bc_export import export_boundary_conditions
+from .post.vtu import create_results_data, export_results_vtu
 from .stress import StressField, voxel_stresses
 from .utils.terminal import (
     print_data,
@@ -46,12 +55,13 @@ from .utils.terminal import (
     print_success,
     print_warning,
 )
+from .utils.volume import calculate_element_volumes, calculate_volume
 
 __version__ = "0.1.0"
 
 __all__ = [
     "resolve_dtype",
-    "VoxelGrid", "generate_grid",
+    "VoxelGrid", "generate_grid", "setup_problem",
     "OptimizationParameters", "OptimizationResult",
     "DirichletBC", "apply_fixed_boundary", "apply_sliding_boundary",
     "build_free_mask", "closest_node", "select_nodes_by_arc",
@@ -60,10 +70,25 @@ __all__ = [
     "AbstractLoadCondition", "PointLoad", "SurfaceTractionLoad",
     "apply_force", "apply_surface_traction", "build_load_field",
     "get_boundary_facets",
+    "create_material_model", "create_simp_material_model",
     "hex8_stiffness", "lame_parameters", "simp_youngs_modulus",
     "VoxelFilter", "create_filter_cache", "VoxelOperator",
-    "build_voxel_step", "simp_optimize",
+    "build_voxel_step", "simp_optimize", "verify_sensitivities",
     "StressField", "voxel_stresses",
+    "create_results_data", "export_results_vtu",
+    "export_boundary_conditions",
+    "calculate_volume", "calculate_element_volumes",
     "print_data", "print_error", "print_info", "print_success",
     "print_warning",
 ]
+
+
+def setup_problem(grid, interpolation_order: int = 1):
+    """API-parity shim for the reference `setup_problem`
+    (FiniteElementAnalysis.jl:130-157).  The array-first design needs no
+    DofHandler/CellValues/sparse K; returns the grid itself so reference-style
+    scripts keep their shape."""
+    if interpolation_order != 1:
+        raise NotImplementedError("only first-order elements are supported")
+    print_success(f"FEM setup complete: {grid.n_dofs} DOFs")
+    return grid

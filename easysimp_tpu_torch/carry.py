@@ -20,15 +20,26 @@ __all__ = ["params_from_reference", "fields_from_numpy",
            "power_vectors_from_numpy"]
 
 
-def params_from_reference(obj) -> OptimizationParameters:
+def params_from_reference(obj, material_model=None) -> OptimizationParameters:
     """Copy an `easysimp_tpu.OptimizationParameters` field by field, by
-    attribute (the reference object is never imported, only read)."""
+    attribute (the reference object is never imported, only read).
+
+    A reference `material_model` is a closure on jax arrays and cannot be
+    translated: give the same law as a closure on tensors in
+    `material_model`, which takes its place; without one a reference object
+    that has a material model is refused."""
     kw = {}
     for f in dataclasses.fields(OptimizationParameters):
         if not hasattr(obj, f.name):
             raise AttributeError(f"reference parameters lack field {f.name!r}")
         value = getattr(obj, f.name)
         kw[f.name] = list(value) if isinstance(value, list) else value
+    if kw["material_model"] is not None and material_model is None:
+        raise ValueError(
+            "the reference parameters carry a material_model, a closure on "
+            "jax arrays that cannot be translated; pass the same law on "
+            "torch tensors as material_model=")
+    kw["material_model"] = material_model
     return OptimizationParameters(**kw)
 
 

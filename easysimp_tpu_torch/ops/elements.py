@@ -3,7 +3,9 @@
 Port of the hex8 part of easysimp_tpu/ops/elements.py.  The voxel path
 precomputes ONE reference 24x24 stiffness for the uniform box element at E=1
 on the host in float64 and scales it per element by E(rho) on the device —
-valid because ke is linear in E at fixed Poisson ratio.
+valid because ke is linear in E at fixed Poisson ratio.  A material model
+with its own rho -> (lam, mu) law uses the two Lamé basis stiffnesses
+instead, since ke is linear in (lam, mu) as well.
 
 Node ordering is the VTK/Ferrite hexahedron order; local dofs are node-major
 (node a's dofs at 3a..3a+2).
@@ -16,9 +18,13 @@ import numpy as np
 __all__ = [
     "HEX_CORNERS",
     "lame_parameters",
+    "create_material_model",
     "simp_youngs_modulus",
+    "create_simp_material_model",
     "elasticity_matrix",
+    "elasticity_matrix_lame",
     "hex8_b_matrices",
+    "hex8_stiffness_lame_basis",
     "hex8_stiffness",
 ]
 
@@ -47,10 +53,28 @@ def lame_parameters(E, nu):
     return lam, mu
 
 
+def create_material_model(E, nu):
+    """The reference's `create_material_model`
+    (FiniteElementAnalysis.jl:79-81): the (lambda, mu) tuple."""
+    return lame_parameters(E, nu)
+
+
 def simp_youngs_modulus(rho, E0, Emin, p):
     """SIMP law E(rho) = Emin + (E0 - Emin) * rho^p
     (FiniteElementAnalysis.jl:100-112).  Works on arrays and tensors."""
     return Emin + (E0 - Emin) * rho**p
+
+
+def create_simp_material_model(E0, nu, Emin=1e-6, p=3.0):
+    """rho -> (lambda, mu) under the SIMP law, as the reference's
+    `create_simp_material_model` (FiniteElementAnalysis.jl:100-112).  The
+    closure is elementwise arithmetic, so it takes tensors (and is
+    differentiable by `torch.func.jvp`) as well as arrays and floats."""
+
+    def material_for_density(rho):
+        return lame_parameters(simp_youngs_modulus(rho, E0, Emin, p), nu)
+
+    return material_for_density
 
 
 def elasticity_matrix(E, nu):
@@ -126,15 +150,39 @@ def hex8_b_matrices(spacing):
     return B, w
 
 
+def elasticity_matrix_lame(lam, mu):
+    """6x6 isotropic elasticity matrix from the Lamé parameters.  D is
+    linear in (lam, mu), which is what makes ke(lam, mu) = lam * ke_lam +
+    mu * ke_mu with two constant basis matrices."""
+    D = np.zeros((6, 6), dtype=np.float64)
+    D[:3, :3] = lam
+    D[0, 0] = D[1, 1] = D[2, 2] = lam + 2.0 * mu
+    D[3, 3] = D[4, 4] = D[5, 5] = mu
+    return D
+
+
+def _hex8_stiffness_from_D(spacing, D):
+    B, w = hex8_b_matrices(spacing)
+    ke = np.zeros((24, 24), dtype=np.float64)
+    for q in range(8):
+        ke += w[q] * (B[q].T @ D @ B[q])
+    return 0.5 * (ke + ke.T)
+
+
+def hex8_stiffness_lame_basis(spacing):
+    """(ke_lam, ke_mu): the 24x24 stiffnesses of the uniform box element at
+    (lam, mu) = (1, 0) and (0, 1), float64 numpy, symmetrised.  An arbitrary
+    per-element material is then two constant-ke contractions against two
+    Lamé fields, in place of the reference's per-cell re-assembly
+    (`assemble_variable_material!`, FiniteElementAnalysis.jl:719-743)."""
+    return (_hex8_stiffness_from_D(spacing, elasticity_matrix_lame(1.0, 0.0)),
+            _hex8_stiffness_from_D(spacing, elasticity_matrix_lame(0.0, 1.0)))
+
+
 def hex8_stiffness(spacing, E=1.0, nu=0.3):
     """24x24 stiffness of an axis-aligned box element (hx, hy, hz).
 
     float64 numpy with exact 2x2x2 Gauss quadrature — the single reference
     `ke` that the voxel matrix-free operator scales by E(rho) per element.
     """
-    B, w = hex8_b_matrices(spacing)
-    D = elasticity_matrix(E, nu)
-    ke = np.zeros((24, 24), dtype=np.float64)
-    for q in range(8):
-        ke += w[q] * (B[q].T @ D @ B[q])
-    return 0.5 * (ke + ke.T)
+    return _hex8_stiffness_from_D(spacing, elasticity_matrix(E, nu))

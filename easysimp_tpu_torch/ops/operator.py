@@ -10,11 +10,15 @@ constrained subspace held exactly at zero.
 
 `apply_K` and `element_energies_unit` dispatch on the device of their
 tensors: CUDA tensors go to the hand-written kernels of `cuda_kernels.py`,
-CPU tensors to their plain versions.  The two-field Lamé path
-(`material_model`) is not ported yet.
+CPU tensors to their plain versions.  So does the two-field Lamé path of a
+`material_model`: both kernels take `ke` as an argument, and ke(lam, mu) =
+lam * ke_lam + mu * ke_mu, so K(lam, mu) u is two matvec launches and the
+two material-derivative quadratics are two energies launches.
 """
 
 from __future__ import annotations
+
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -22,10 +26,16 @@ import torch
 from .cuda_kernels import (
     compute_dtype,
     gather_element_dofs,
+    scatter_element_dofs,
     voxel_energies,
     voxel_matvec,
 )
-from .elements import HEX_CORNERS, hex8_stiffness, simp_youngs_modulus
+from .elements import (
+    HEX_CORNERS,
+    hex8_stiffness,
+    hex8_stiffness_lame_basis,
+    simp_youngs_modulus,
+)
 
 __all__ = ["VoxelOperator"]
 
@@ -81,26 +91,88 @@ class VoxelOperator:
         """BC-masked SPD operator A u = M K (M u) on the free subspace."""
         return free_mask * self.apply_K(free_mask * u, scale)
 
-    def _corner_scatter(self, scale, per_corner, free_mask):
+    def _corner_scatter(self, terms, free_mask):
+        """Node field of sum over `terms` (element field, (8, 3) per-corner
+        table) of field_e * table[c], scattered to each element's corners;
+        1.0 on constrained dofs."""
         nx, ny, nz = self.grid.nels
-        out = scale.new_zeros((nx + 1, ny + 1, nz + 1, 3))
+        out = terms[0][0].new_zeros((nx + 1, ny + 1, nz + 1, 3))
         for c, (dx, dy, dz) in enumerate(HEX_CORNERS):
             out[dx:dx + nx, dy:dy + ny, dz:dz + nz, :] += \
-                scale[..., None] * per_corner[c]
+                sum(field[..., None] * table[c] for field, table in terms)
         return torch.where(free_mask > 0, out, torch.ones_like(out))
 
     def diagonal(self, scale, free_mask):
         """diag(A) as a node field; 1.0 on constrained dofs."""
-        return self._corner_scatter(scale, self.ke_diag, free_mask)
+        return self._corner_scatter([(scale, self.ke_diag)], free_mask)
 
     def row_abs_sums(self, scale, free_mask):
         """Upper bound on global |K| row sums (Gershgorin data); 1.0 on
         constrained dofs."""
-        return self._corner_scatter(scale, self.ke_rowabs, free_mask)
+        return self._corner_scatter([(scale, self.ke_rowabs)], free_mask)
 
     def element_energies_unit(self, u):
         """u_e^T ke u_e per element (unit modulus), shape (nx, ny, nz)."""
         return voxel_energies(u, self.ke)
+
+    # ----- variable-material (two-field Lamé) path ------------------------
+    # Replaces the reference's `assemble_variable_material!` branch
+    # (use_cache=false, FiniteElementAnalysis.jl:719-743): ke is linear in
+    # (lam, mu), so an arbitrary per-element material, also one whose
+    # Poisson ratio varies with density, is two constant-ke contractions
+    # against two Lamé fields.
+    @cached_property
+    def ke_lame_basis(self):
+        """(ke_lam, ke_mu) with ke(lam, mu) = lam*ke_lam + mu*ke_mu, on the
+        device in the compute dtype (built at first use, then kept)."""
+        return tuple(
+            torch.as_tensor(k, dtype=compute_dtype(self.dtype),
+                            device=self.device)
+            for k in hex8_stiffness_lame_basis(self.grid.spacing))
+
+    @cached_property
+    def _ke_lame_diag(self):
+        """Per-corner diagonals of (ke_lam, ke_mu), each (8, 3)."""
+        return tuple(torch.diagonal(k).reshape(8, 3).to(self.dtype)
+                     for k in self.ke_lame_basis)
+
+    def apply_K_lame(self, u, lam_field, mu_field):
+        """K(lam, mu) @ u with per-element Lamé fields (nx, ny, nz): one
+        matvec per basis stiffness."""
+        ke_lam, ke_mu = self.ke_lame_basis
+        return (voxel_matvec(u, lam_field, ke_lam)
+                + voxel_matvec(u, mu_field, ke_mu))
+
+    def apply_K_lame_plain(self, u, lam_field, mu_field):
+        """`apply_K_lame` as the reference writes it, in plain tensor code
+        on any device: gather, two (N,24)@(24,24), scale, one scatter."""
+        ke_lam, ke_mu = self.ke_lame_basis
+        ue = gather_element_dofs(u).to(ke_lam.dtype)
+        flat = ue.reshape(-1, 24)
+        fe = (lam_field.to(ke_lam.dtype)[..., None]
+              * (flat @ ke_lam).reshape(ue.shape)
+              + mu_field.to(ke_lam.dtype)[..., None]
+              * (flat @ ke_mu).reshape(ue.shape))
+        return scatter_element_dofs(fe).to(u.dtype)
+
+    def apply_lame(self, u, lam_field, mu_field, free_mask):
+        """BC-masked SPD action of the variable-material operator."""
+        return free_mask * self.apply_K_lame(free_mask * u, lam_field,
+                                             mu_field)
+
+    def diagonal_lame(self, lam_field, mu_field, free_mask):
+        """diag of the masked variable-material K; 1.0 on constrained
+        dofs."""
+        dl, dm = self._ke_lame_diag
+        return self._corner_scatter([(lam_field, dl), (mu_field, dm)],
+                                    free_mask)
+
+    def element_energies_lame(self, u):
+        """(u_e^T ke_lam u_e, u_e^T ke_mu u_e) element fields, the
+        material-derivative quadratics of the variable-material
+        sensitivities: dc/drho_e = -(lam'(rho) w_lam + mu'(rho) w_mu)."""
+        ke_lam, ke_mu = self.ke_lame_basis
+        return voxel_energies(u, ke_lam), voxel_energies(u, ke_mu)
 
     def compliance_sensitivities(self, u, rho_phys):
         """d(compliance)/d(rho_phys) = -p rho^(p-1) (E0-Emin) u_e^T ke u_e."""

@@ -17,6 +17,18 @@ Preconditioners: geometric multigrid ("multigrid", and "auto" when the grid
 has a coarser level; ops/multigrid.py), "jacobi" and "none"; "block_jacobi"
 and "amg" fall through to Jacobi on voxel grids, as in the reference.
 
+A `material_model` (a rho -> (lam, mu) closure on tensors) replaces the
+SIMP law: CG applies the two-field Lamé operator (two kernel launches per
+matvec), the sensitivities are the exact material derivative by
+`torch.func.jvp`, and the preconditioner is built on the equivalent modulus
+mu(rho) / mu_unit through the ordinary operator.
+
+Around the loop, as in the reference: coarse-to-fine continuation
+(opt/continuation.py), checkpoint save and resume (opt/checkpoint.py),
+interval and tolerance VTU exports (post/vtu.py) and a `torch.profiler`
+trace of iterations 2-4 (`profile_dir`).  The reference's split of the
+iteration into several programs is a TPU matter and has no counterpart.
+
 Multigrid carries state across iterations (easysimp_tpu/opt/optimize.py
 :720-819): per-level power vectors, estimated cold once before the loop and
 refreshed by every setup; and the V-cycle state, rebuilt every
@@ -28,6 +40,7 @@ runs that as separate programs; here it is one eager loop.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -94,6 +107,9 @@ class DiagonalPreconditioner:
     def __init__(self, op: VoxelOperator, jacobi: bool = True):
         self.op = op
         self.jacobi = jacobi
+
+    def init_power_vectors(self):
+        return ()
 
     def power_init(self, scale, free_mask):
         return ()
@@ -192,9 +208,6 @@ def build_voxel_step(grid, loads, boundary_conditions,
                      params: OptimizationParameters, acceleration_data=None,
                      device="cuda") -> VoxelStep:
     """Build the SIMP iteration for a voxel problem on `device`."""
-    if params.material_model is not None:
-        raise NotImplementedError(
-            "material_model (the two-field Lame path) is not ported yet")
     device = torch.device(device)
     dtype = resolve_dtype(params.dtype, device)
     elem_vol = grid.element_volume
@@ -228,18 +241,39 @@ def build_voxel_step(grid, loads, boundary_conditions,
                          device=device)
     u0 = torch.zeros((*grid.nnodes_per_axis, 3), dtype=dtype, device=device)
 
+    material_model = params.material_model
+    # Equivalent-modulus field for the PRECONDITIONER under a custom
+    # material: E_eff = 2(1+nu)*mu(rho), exact when nu does not depend on
+    # the density; for varying-nu models an SPD approximation (the
+    # preconditioner only steers CG, the operator itself is exact).
+    mu_unit = 1.0 / (2.0 * (1.0 + params.nu))
+
     def physical(design):
         return filt.density_filter(design) if use_density_filter else design
+
+    def precond_scale(phys):
+        if material_model is None:
+            return op.youngs_modulus(phys)
+        return material_model(phys)[1] / mu_unit
 
     def forward(design, u_prev, state, recycle=None, rtol=None):
         """filter -> loads -> solve -> energy/volume."""
         phys = physical(design)
-        scale = op.youngs_modulus(phys)
         f = f_ext
         if acceleration_data is not None:
             f = f + voxel_body_force(phys, accel_vec, base_density, elem_vol)
         f_bc = f * free_mask
-        sol = cg_solve(lambda v: op.apply(v, scale, free_mask), f_bc,
+        if material_model is None:
+            scale = op.youngs_modulus(phys)
+
+            def A(v):
+                return op.apply(v, scale, free_mask)
+        else:
+            lam_f, mu_f = material_model(phys)
+
+            def A(v):
+                return op.apply_lame(v, lam_f, mu_f, free_mask)
+        sol = cg_solve(A, f_bc,
                        x0=u_prev * free_mask, M=precond.make_M(state),
                        rtol=params.cg_rtol if rtol is None else rtol,
                        maxiter=params.cg_maxiter,
@@ -253,7 +287,15 @@ def build_voxel_step(grid, loads, boundary_conditions,
     def step(design, u_prev, state, recycle=None, rtol=None) -> StepOutput:
         phys, sol, energy, volume = forward(design, u_prev, state, recycle,
                                             rtol)
-        sens = op.compliance_sensitivities(sol.u, phys)
+        if material_model is None:
+            sens = op.compliance_sensitivities(sol.u, phys)
+        else:
+            # the exact material derivative by one elementwise jvp: dc/drho
+            # = -(lam'(rho) u_e^T ke_lam u_e + mu'(rho) u_e^T ke_mu u_e)
+            _, (dlam, dmu) = torch.func.jvp(material_model, (phys,),
+                                            (torch.ones_like(phys),))
+            wl, wm = op.element_energies_lame(sol.u)
+            sens = -(dlam * wl + dmu * wm)
         if use_density_filter:
             fsens = filt.chain_rule(sens)
         else:
@@ -278,15 +320,14 @@ def build_voxel_step(grid, loads, boundary_conditions,
         """Preconditioner setup on the design's moduli: full, or
         multigrid's light one on top of prev_state.  Returns (state, new
         power vectors)."""
-        scale = op.youngs_modulus(physical(design))
+        scale = precond_scale(physical(design))
         if prev_state is None:
             return precond.setup(scale, free_mask, pvecs)
         return precond.setup_light(scale, free_mask, pvecs, prev_state)
 
     def power_init(design):
         """The one-time cold lambda_max estimation on the initial design."""
-        return precond.power_init(op.youngs_modulus(physical(design)),
-                                  free_mask)
+        return precond.power_init(precond_scale(physical(design)), free_mask)
 
     def solve(design, pvecs):
         """Final analysis (Optimization.jl:494-539): re-filter + re-solve
@@ -298,7 +339,11 @@ def build_voxel_step(grid, loads, boundary_conditions,
 
     def element_energy(phys, u):
         """0.5 * u_e^T K_e u_e element field (PostProcessing.jl:172-197)."""
-        return 0.5 * op.youngs_modulus(phys) * op.element_energies_unit(u)
+        if material_model is None:
+            return 0.5 * op.youngs_modulus(phys) * op.element_energies_unit(u)
+        lam_f, mu_f = material_model(phys)
+        wl, wm = op.element_energies_lame(u)
+        return 0.5 * (lam_f * wl + mu_f * wm)
 
     return VoxelStep(
         grid=grid, op=op, filt=filt, precond=precond,
@@ -309,23 +354,9 @@ def build_voxel_step(grid, loads, boundary_conditions,
         dtype=dtype, device=device)
 
 
-def _check_ported(params, mesh, resume_from):
-    missing = []
-    if params.export_interval > 0 or params.tolerance_checkpoints:
-        missing.append("VTU exports (export_interval, tolerance_checkpoints)")
-    if params.continuation_levels > 0:
-        missing.append("continuation_levels")
-    if params.checkpoint_path or params.checkpoint_interval > 0 \
-            or resume_from:
-        missing.append("checkpoint_path / resume_from")
-    if params.profile_dir:
-        missing.append("profile_dir")
-    if mesh is not None:
-        missing.append("mesh (multi-device)")
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(missing)
-            + " (see ROADMAP.md, queue 1)")
+def _to_numpy(t):
+    """A tensor as float64 numpy on the host."""
+    return t.cpu().double().numpy()
 
 
 def simp_optimize(grid, loads, boundary_conditions,
@@ -341,7 +372,10 @@ def simp_optimize(grid, loads, boundary_conditions,
       params: OptimizationParameters.
       acceleration_data: optional (acceleration_vector, base_density) for
         variable-density body forces (Optimization.jl:195-198, 301-311).
-      mesh, resume_from: not ported yet; must be None.
+      mesh: multi-device runs are not ported yet; must be None.
+      resume_from: optional checkpoint path (opt/checkpoint.py, the JAX
+        package's format): restores design, displacements, iteration,
+        histories, power vectors and recycle ring, and continues.
       device: where every tensor lives, "cuda[:N]" (the default) or "cpu".
         CUDA runs the operator through the hand-written kernels; without a
         CUDA device the default raises, and the CPU runs only when asked
@@ -349,7 +383,9 @@ def simp_optimize(grid, loads, boundary_conditions,
     """
     if not isinstance(grid, VoxelGrid):
         raise NotImplementedError("unstructured meshes are not ported yet")
-    _check_ported(params, mesh, resume_from)
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported yet: mesh (multi-device; see ROADMAP.md)")
     if params.cg_forcing not in ("fixed", "adaptive"):
         raise ValueError(f"cg_forcing must be 'fixed' or 'adaptive', "
                          f"got {params.cg_forcing!r}")
@@ -369,14 +405,24 @@ def simp_optimize(grid, loads, boundary_conditions,
                           acceleration_data, device=device)
     total_volume, elem_vol = vs.total_volume, vs.elem_vol
     design, u = vs.design0, vs.u0
+    # Coarse-to-fine continuation: replace the uniform initial design with
+    # the prolonged result of a half-resolution run of the same problem
+    # (opt/continuation.py).  Resuming a checkpoint supersedes it: the
+    # checkpointed state is already developed.
+    if params.continuation_levels > 0 and not resume_from:
+        from .continuation import continuation_init
+
+        design, u = continuation_init(grid, loads, boundary_conditions,
+                                      params, acceleration_data,
+                                      device=vs.device)
 
     # Subspace-recycled CG: ring buffer of the last k solutions, whose
     # deltas deflate the warm-start residual (ops/cg.py).
     recycle_k = params.cg_recycle_k
     rhist = None
+    recycle_dtype = (resolve_dtype(params.cg_recycle_dtype, vs.device)
+                     if params.cg_recycle_dtype else None)
     if recycle_k > 1:
-        recycle_dtype = (resolve_dtype(params.cg_recycle_dtype, vs.device)
-                         if params.cg_recycle_dtype else None)
         rhist = recycle_init(recycle_k, u, dtype=recycle_dtype)
 
     # Adaptive CG forcing: the tolerance follows how fast the design moves.
@@ -390,10 +436,53 @@ def simp_optimize(grid, loads, boundary_conditions,
 
     rtol_now = _forcing_rtol(None) if adaptive_forcing else None
 
+    energy_history: list[float] = []
+    volume_history: list[float] = []
+    change_history: list[float] = []
+    cg_history: list[int] = []
+    checkpoint_triggered = [False] * len(params.tolerance_checkpoints)
+    start_iteration = 1
+    pvecs = None
+    if resume_from:
+        from .checkpoint import load_checkpoint, restore_triggered
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=vs.dtype, device=vs.device)
+
+        saved = load_checkpoint(resume_from)
+        design, u = dev(saved["design"]), dev(saved["u"])
+        start_iteration = saved["iteration"] + 1
+        energy_history = saved["energy_history"]
+        volume_history = saved["volume_history"]
+        change_history = saved["change_history"]
+        cg_history = saved["cg_history"]
+        checkpoint_triggered = restore_triggered(
+            saved["checkpoint_triggered"], params.tolerance_checkpoints)
+        saved_pvecs = saved["pvecs"]
+        shapes = [v.shape for v in vs.precond.init_power_vectors()]
+        if shapes and [v.shape for v in saved_pvecs] == shapes:
+            pvecs = tuple(dev(v) for v in saved_pvecs)
+        if rhist is not None:
+            saved_rec = saved["recycle"]
+            if saved_rec is not None and saved_rec.shape[0] == recycle_k:
+                rhist = dev(saved_rec).to(recycle_dtype or vs.dtype)
+            else:
+                # the checkpoint predates recycling (or has another k): seed
+                # the ring with the restored warm start
+                rhist = recycle_init(recycle_k, u, dtype=recycle_dtype)
+        if adaptive_forcing and change_history:
+            # a resumed run restarts the forcing schedule from the restored
+            # change
+            rtol_now = _forcing_rtol(change_history[-1])
+    if params.tolerance_checkpoints:
+        print_info(
+            f"Tolerance checkpoints enabled: {params.tolerance_checkpoints}")
+
     # Preconditioner state: the carried power vectors (multigrid's cold
-    # estimation once, here) and the state with its setup cadence and the
-    # CG watchdog.
-    pvecs = vs.power_init(design)
+    # estimation once, here, unless a checkpoint brought them) and the
+    # state with its setup cadence and the CG watchdog.
+    if pvecs is None:
+        pvecs = vs.power_init(design)
     light_ok = (vs.precond.supports_light_setup
                 and params.mg_full_setup_every > 1)
     state = None
@@ -402,18 +491,31 @@ def simp_optimize(grid, loads, boundary_conditions,
     cg_baseline = None        # CG count of the first solve after a full setup
     cg_since_refresh = None   # CG count of the most recent solve
 
-    energy_history: list[float] = []
-    volume_history: list[float] = []
-    change_history: list[float] = []
-    cg_history: list[int] = []
-    iteration_seconds: list[float] = []
+    iteration_seconds: list[float] = []   # of this run's own iterations
     converged = False
-    iteration = 0
+    iteration = start_iteration - 1
     warned_health = False
     warned_bisection = False
 
-    for it in range(1, params.max_iterations + 1):
+    def maybe_save_checkpoint(it):
+        if params.checkpoint_interval > 0 and params.checkpoint_path and \
+                it % params.checkpoint_interval == 0:
+            from .checkpoint import save_checkpoint
+
+            save_checkpoint(
+                params.checkpoint_path, design=_to_numpy(design),
+                u=_to_numpy(u), iteration=it, energy_history=energy_history,
+                volume_history=volume_history, change_history=change_history,
+                cg_history=cg_history,
+                checkpoint_triggered=checkpoint_triggered,
+                pvecs=[_to_numpy(v) for v in pvecs],
+                recycle=_to_numpy(rhist) if rhist is not None else None)
+
+    profiler = None
+    for it in range(start_iteration, params.max_iterations + 1):
         iteration = it
+        if params.profile_dir and it == 2:
+            profiler = _start_profiler(vs.device)
         t0 = time.perf_counter()
         # Refresh the preconditioner every setup_every iterations (CG
         # always applies the current operator), at once when the last solve
@@ -437,6 +539,9 @@ def simp_optimize(grid, loads, boundary_conditions,
         (change, grayness, max_disp, frac_neg, _mean_abs, max_abs) = \
             vs.metrics(out.new_design, design, out.phys, out.u, out.fsens)
         u = out.u
+        if profiler is not None and it >= 4:
+            _stop_profiler(profiler, vs.device, params.profile_dir)
+            profiler = None
 
         energy = float(out.energy)
         volume = float(out.volume)
@@ -456,7 +561,7 @@ def simp_optimize(grid, loads, boundary_conditions,
 
         # Sensitivity health warnings, warn once (OptimalityCriteria.jl
         # :19-40); the median comes from a host-side subsample.
-        if not warned_health and (it == 1 or it % 10 == 0):
+        if not warned_health and (it == start_iteration or it % 10 == 0):
             warned_health = _warn_sensitivity_health(
                 float(frac_neg), float(max_abs), out.fsens)
 
@@ -479,11 +584,35 @@ def simp_optimize(grid, loads, boundary_conditions,
             f"| Change: {change:.4e} | CG: {out.cg_iters:4d}"
         )
 
+        # Tolerance checkpoints (Optimization.jl:407-445)
+        if params.tolerance_checkpoints and params.export_path:
+            for idx, cp in enumerate(params.tolerance_checkpoints):
+                if not checkpoint_triggered[idx] and change < cp:
+                    checkpoint_triggered[idx] = True
+                    print_info(
+                        f"Tolerance checkpoint {cp} reached at iteration {it}")
+                    _export_intermediate(
+                        vs, params, out.phys, u, energy, volume, it,
+                        energy_history, volume_history,
+                        name=f"final_results_{int(round(cp * 100)):02d}tol")
+
+        # Periodic interval export (Optimization.jl:448-477)
+        if (params.export_interval > 0
+                and it % params.export_interval == 0
+                and params.export_path):
+            _export_intermediate(
+                vs, params, out.phys, u, energy, volume, it,
+                energy_history, volume_history, name=f"iter_{it:04d}")
+
         design = out.new_design
+        maybe_save_checkpoint(it)
         if change < params.tolerance:
             print_success(f"Converged after {it} iterations")
             converged = True
             break
+
+    if profiler is not None:  # max_iterations < 4
+        _stop_profiler(profiler, vs.device, params.profile_dir)
 
     # ----- final analysis (Optimization.jl:494-539) -------------------------
     phys, u, final_energy = vs.solve(design, pvecs)
@@ -491,14 +620,14 @@ def simp_optimize(grid, loads, boundary_conditions,
     final_volume = float(phys.sum()) * elem_vol
 
     stresses = voxel_stresses(grid, u, phys, params.E0, params.Emin,
-                              params.nu, params.p)
+                              params.nu, params.p,
+                              material_model=params.material_model)
     print_data(
         f"Maximum von Mises stress: {stresses.max_von_mises} "
         f"at cell {stresses.max_vm_cell}"
     )
     # 0.5 * integral(sigma:eps) per cell == 0.5 * u_e^T K_e u_e
-    elem_energies = grid.cells_flat(
-        vs.element_energy(phys, u).cpu().double().numpy())
+    elem_energies = grid.cells_flat(_to_numpy(vs.element_energy(phys, u)))
 
     if logger is not None:
         logger.write_summary(final_energy, final_volume, converged)
@@ -508,10 +637,10 @@ def simp_optimize(grid, loads, boundary_conditions,
     print_data(f"Final energy: {final_energy}")
     print_data(f"Final volume fraction: {final_volume / total_volume}")
 
-    phys_np = phys.cpu().double().numpy()
+    phys_np = _to_numpy(phys)
     return OptimizationResult(
         densities=grid.cells_flat(phys_np),
-        displacements=grid.dofs_flat(u.cpu().double().numpy()),
+        displacements=grid.dofs_flat(_to_numpy(u)),
         stresses=stresses,
         energy=final_energy,
         volume=final_volume,
@@ -525,3 +654,57 @@ def simp_optimize(grid, loads, boundary_conditions,
         element_energies=elem_energies,
         iteration_seconds=iteration_seconds,
     )
+
+
+def _start_profiler(device):
+    """A running `torch.profiler` over the host and, on a CUDA device, the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.__enter__()
+    return profiler
+
+
+def _stop_profiler(profiler, device, profile_dir):
+    """Waits for the device, stops `profiler` and writes its chrome trace
+    into `profile_dir`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "simp_iterations.trace.json")
+    profiler.export_chrome_trace(path)
+    print_info(f"Profiler trace written to {path}")
+
+
+def _export_intermediate(vs, params, phys, u, energy, volume, iteration,
+                         energy_history, volume_history, name):
+    """Stress recovery + VTU export for checkpoints/interval dumps."""
+    from ..post.vtu import create_results_data, export_main_results
+
+    grid = vs.grid
+    stresses = voxel_stresses(grid, u, phys, params.E0, params.Emin,
+                              params.nu, params.p,
+                              material_model=params.material_model)
+    phys_np = _to_numpy(phys)
+    interim = OptimizationResult(
+        densities=grid.cells_flat(phys_np),
+        displacements=grid.dofs_flat(_to_numpy(u)),
+        stresses=stresses,
+        energy=float(energy),
+        volume=float(volume),
+        iterations=iteration,
+        converged=False,
+        energy_history=list(energy_history),
+        volume_history=list(volume_history),
+        densities_3d=phys_np,
+        element_energies=grid.cells_flat(
+            _to_numpy(vs.element_energy(phys, u))),
+    )
+    data = create_results_data(grid, interim)
+    export_main_results(data, os.path.join(params.export_path, name))
+    print_success(f"Exported: {name}.vtu")

@@ -1,11 +1,9 @@
 """Optimization parameters and result containers.
 
 Field for field the same as easysimp_tpu/params.py, so that `carry.py` can
-copy a reference parameter object by attribute.  Fields that select parts of
-the reference not yet ported (continuation, checkpoints, exports,
-`material_model`) are kept with their defaults; `simp_optimize` raises
-`NotImplementedError` when one of them asks for the missing part.  Their
-meaning is documented in easysimp_tpu/params.py.
+copy a reference parameter object by attribute.  On a voxel grid on one
+device every field acts as in the reference; the AMG knobs belong to the
+unstructured path, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,13 +40,17 @@ class OptimizationParameters:
 
     use_cache: bool = True              # kept for API parity; always cached
 
-    # Variable-material interpolation rho -> (lam, mu) (the reference's
-    # use_cache=false branch).  Not ported yet: must stay None.
+    # Variable-material interpolation rho -> (lam, mu), a closure on
+    # tensors that `torch.func.jvp` can differentiate (the reference's
+    # use_cache=false branch); None = the SIMP law with constant nu.
     material_model: object = None
 
-    # Intermediate export (not ported yet)
+    # Intermediate export: <export_path>/iter_NNNN.vtu every
+    # export_interval iterations, final_results_XXtol.vtu when the change
+    # first falls below each of tolerance_checkpoints; the CSV log and the
+    # summary go to export_path as well
     export_interval: int = 0
-    export_path: str = ""               # CSV log + summary are ported
+    export_path: str = ""
     task_name: str = "SIMP_Optimization"
     tolerance_checkpoints: list[float] = field(default_factory=list)
 
@@ -86,11 +88,15 @@ class OptimizationParameters:
     use_pallas_matvec: bool = True      # ignored: CUDA tensors always take
                                         # the hand-written kernels
 
-    # Coarse-to-fine continuation (not ported yet)
+    # Coarse-to-fine continuation (opt/continuation.py): start from the
+    # prolonged result of continuation_levels half-resolution stages of
+    # continuation_iters iterations each; 0 = off
     continuation_levels: int = 0
     continuation_iters: int = 40
 
-    # Checkpoint/resume and profiling (not ported yet)
+    # Checkpoint every checkpoint_interval iterations into checkpoint_path
+    # (opt/checkpoint.py); profile_dir: a torch.profiler chrome trace of
+    # iterations 2-4 is written there
     checkpoint_interval: int = 0
     checkpoint_path: str = ""
     profile_dir: str = ""

@@ -53,18 +53,24 @@ def von_mises_from_voigt(sig):
         + 3.0 * (sxy**2 + syz**2 + sxz**2), min=0.0))
 
 
-def voxel_stress_arrays(grid, u_field, rho_phys, E0, Emin, nu, p):
+def voxel_stress_arrays(grid, u_field, rho_phys, E0, Emin, nu, p,
+                        material_model=None):
     """Batched stress recovery on u_field's device.
 
     Returns (qp_stresses (nx,ny,nz,8,6), avg (nx,ny,nz,6), vm (nx,ny,nz)):
     sigma = lambda tr(eps) I + 2 mu eps per Gauss point with the SIMP-scaled
-    moduli (FiniteElementAnalysis.jl:537-555)."""
+    moduli (FiniteElementAnalysis.jl:537-555), or with those of
+    `material_model`, a rho -> (lam, mu) closure on tensors, as the
+    reference passes its closure into calculate_stresses_simp (:567-580)."""
     B, _ = hex8_b_matrices(grid.spacing)
     B = torch.as_tensor(B, dtype=u_field.dtype, device=u_field.device)
     ue = gather_element_dofs(u_field)                       # (nx,ny,nz,24)
     eps = torch.einsum("qck,...k->...qc", B, ue)            # (nx,ny,nz,8,6)
-    E = simp_youngs_modulus(rho_phys, E0, Emin, p)
-    lam, mu = lame_parameters(E, nu)
+    if material_model is not None:
+        lam, mu = material_model(rho_phys)
+    else:
+        E = simp_youngs_modulus(rho_phys, E0, Emin, p)
+        lam, mu = lame_parameters(E, nu)
     lam_q = lam[..., None, None]
     mu_q = mu[..., None, None]
     tr = eps[..., 0:3].sum(dim=-1, keepdim=True)
@@ -75,11 +81,12 @@ def voxel_stress_arrays(grid, u_field, rho_phys, E0, Emin, nu, p):
     return sig, avg, von_mises_from_voigt(avg)
 
 
-def voxel_stresses(grid, u_field, rho_phys, E0, Emin, nu, p) -> StressField:
+def voxel_stresses(grid, u_field, rho_phys, E0, Emin, nu, p,
+                   material_model=None) -> StressField:
     """Host-facing stress recovery, flattened to x-fastest cell numbering
     (float64 numpy)."""
     sig, avg, vm = voxel_stress_arrays(grid, u_field, rho_phys, E0, Emin,
-                                       nu, p)
+                                       nu, p, material_model)
     sig = sig.cpu().double().numpy()
     sig_flat = sig.transpose(2, 1, 0, 3, 4).reshape(grid.n_cells, 8, 6)
     avg_flat = avg.cpu().double().numpy().transpose(2, 1, 0, 3).reshape(-1, 6)

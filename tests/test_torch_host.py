@@ -24,6 +24,16 @@ def test_import_without_jax():
         import easysimp_tpu_torch.carry
         import easysimp_tpu_torch.opt.logger
         import easysimp_tpu_torch.ops.cuda_kernels
+        import easysimp_tpu_torch.opt.checkpoint
+        import easysimp_tpu_torch.opt.continuation
+        import easysimp_tpu_torch.opt.verify_sensitivities
+        import easysimp_tpu_torch.post.bc_export
+        import easysimp_tpu_torch.post.vtu
+        import easysimp_tpu_torch.utils.extract_mesh
+        import easysimp_tpu_torch.utils.volume
+        import easysimp_tpu_torch.models.beam_2x1x1
+        import easysimp_tpu_torch.models.cantilever
+        import easysimp_tpu_torch.models.tol_study
         bad = [m for m in ("triton", "torch.utils.cpp_extension",
                            "easysimp_tpu") if m in sys.modules]
         assert not bad, bad

@@ -211,15 +211,19 @@ def test_auto_without_levels_is_jacobi(capsys):
     assert vs.precond.jacobi and vs.setup_every == 1
 
 
-@pytest.mark.parametrize("kw", [
-    dict(preconditioner="jacobi", export_interval=2, export_path="unused"),
-    dict(preconditioner="jacobi", continuation_levels=1),
-    dict(preconditioner="jacobi", checkpoint_path="unused.npz"),
-    dict(preconditioner="jacobi", material_model=lambda rho: (rho, rho)),
-])
-def test_unported_options_raise(kw):
+@pytest.mark.parametrize("what", ["mesh", "unstructured"])
+def test_unported_options_raise(what):
+    """What the port still refuses on the JAX package's signature: a device
+    mesh (multi-device runs) and an unstructured mesh as input."""
     grid, loads, bcs = _cantilever(pt, (4, 2, 2))
     params = pt.OptimizationParameters(max_iterations=1, dtype="float64",
-                                       **kw)
+                                       preconditioner="jacobi")
+    kw = {}
+    if what == "mesh":
+        kw["mesh"] = object()
+    else:
+        from test_unstructured import tet_mesh_from_voxels
+
+        grid = tet_mesh_from_voxels((2, 2, 2))
     with pytest.raises(NotImplementedError):
-        pt.simp_optimize(grid, loads, bcs, params, device="cpu")
+        pt.simp_optimize(grid, loads, bcs, params, device="cpu", **kw)
