@@ -78,6 +78,29 @@ Phases, each of which asserts and prints a line:
               exported with export_results_vtu (seconds, bytes) and read
               back, and one checkpoint of the main-mg state saved and
               loaded (seconds, bytes).
+ 13. unstructured-ops: the unstructured path's modules (library tensor ops,
+              no hand kernel: the reference runs them outside Pallas) on
+              `tet_mesh_from_grid` of 12x6x6 in float64 and float32: the
+              operator, the neighbour-list filter, the AMG setup and one
+              V-cycle on the card against the same objects on the CPU
+              (float64 1e-10, float32 1e-4 of max|out|); two operator
+              applies and two V-cycles bitwise equal; the neighbour route;
+ 14. main-unstructured: `simp_optimize` on an UnstructuredMesh with the
+              bench.py:262-281 composition: tet_mesh_from_grid of 44^3
+              (511,104 tets, 273,375 dofs), float32, AMG (tentative
+              prolongator, coarsest level <= 6000 dofs), adaptive forcing,
+              8-slot ring, 5 SIMP iterations: host build seconds by part,
+              seconds and CG per iteration, the hierarchy, peak memory; a
+              second run with a synchronising timer for AMG setup and solve
+              seconds; one operator apply and one V-cycle as CUDA-graph
+              replays (event-timed if they do not capture); energies
+              finite and falling, volume fraction 0.3, CG < 2000; the two
+              voxel kernels launch no time on this path; then the same
+              composition at 16^3, 24^3 and 32^3 for the CG count's growth
+              with the size;
+ 15. e2e-unstructured: 12x6x6 tets, 6 iterations on the card against the
+              CPU in float64 (energies rtol 1e-8, CG counts equal) and
+              float32 on the card against float64 (5e-3).
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -90,7 +113,9 @@ at 495 TFLOP/s; bfloat16 storage, whose values are exact in bfloat16: ke
 split into three bfloat16 pieces, three bfloat16 products at 989 TFLOP/s)
 plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
 launches are those of the main-mg run; `launches_lame` those of one
-main-lame run (5 iterations with the SIMP closure).
+main-lame run (5 iterations with the SIMP closure);
+`launches_unstructured` those of the main-unstructured run (0: no TPU
+kernel lies on that path).
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -1084,6 +1109,305 @@ def check_io(pt, ck, grid_mg, res_mg):
 
 # Trace groups for the kernels launched inside these ranges (the innermost
 # matching range wins in this order), after the kernel-name groups.
+
+def tet_cantilever(pt, nels):
+    """The bench.py:262-281 problem: the cantilever on the 6-tets-per-voxel
+    mesh of a grid of `nels`."""
+    nx, ny, nz = nels
+    mesh = pt.tet_mesh_from_grid(pt.generate_grid(
+        nels, (0.0, 0.0, 0.0), tuple(float(n) for n in nels)))
+    bc = pt.apply_fixed_boundary(
+        mesh, pt.select_nodes_by_plane(mesh, [0, 0, 0], [1, 0, 0], 1e-6))
+    load = pt.PointLoad(
+        pt.select_nodes_by_box(mesh, [nx, 0, 0], [nx, 0, nz], 1e-6),
+        [0.0, -1.0, 0.0])
+    return mesh, [load], [bc]
+
+
+def unstructured_params(pt, iterations, dtype="float32", **kw):
+    """The bench.py:252-277 composition."""
+    kw = {"cg_rtol": 1e-5, "cg_rtol_max": 1e-3, **kw}
+    return pt.OptimizationParameters(
+        E0=1.0, Emin=1e-9, nu=0.3, p=3.0, volume_fraction=0.3,
+        filter_radius=1.5, dtype=dtype, max_iterations=iterations,
+        tolerance=1e-9, preconditioner="auto", cg_maxiter=2000,
+        cg_recycle_k=8, cg_forcing="adaptive", amg_max_coarse_dofs=6000,
+        amg_smooth_prolongator=False, **kw)
+
+
+def check_unstructured_ops(pt, ck):
+    """Phase 13: operator, filter and AMG on the card against the CPU."""
+    from easysimp_tpu_torch.ops import filters
+    from easysimp_tpu_torch.ops.amg import MultilevelAMG
+    from easysimp_tpu_torch.ops.elements import element_stiffness_batch_np
+    from easysimp_tpu_torch.ops.operator import UnstructuredOperator
+
+    mesh, _, bcs = tet_cantilever(pt, (12, 6, 6))
+    ke, vols = element_stiffness_batch_np(
+        mesh.node_coords[mesh.connectivity], E=1.0, nu=0.3)
+    mask_np = pt.build_free_mask(mesh, bcs)
+    rng = np.random.default_rng(0)
+    rho_np = rng.uniform(0.3, 1.0, mesh.n_cells)
+    r_np = rng.standard_normal(mesh.n_dofs) * mask_np
+    sens_np = -rng.uniform(0.0, 5.0, mesh.n_cells)
+    radius = 1.5 * mesh.characteristic_element_size
+
+    def outputs(dtype, device):
+        dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+        op = UnstructuredOperator(ke, mesh.connectivity, mesh.n_nodes,
+                                  E0=1.0, Emin=1e-9, nu=0.3, p=3.0,
+                                  dtype=dtype, device=device)
+        filt = filters.UnstructuredFilter(mesh.cell_centers, vols, radius,
+                                          dtype=dtype, device=device)
+        amg = MultilevelAMG(op, mesh, mask_np, max_coarse_dofs=60)
+        mask, rho, r, sens = dev(mask_np), dev(rho_np), dev(r_np), \
+            dev(sens_np)
+        scale = op.youngs_modulus(rho)
+        A = lambda v: op.apply(v, scale, mask)  # noqa: E731
+        Binv = op.block_diagonal_inverse(scale, mask)
+        state = amg.setup(scale, mask, Binv, A)
+        M = lambda v: amg.apply(v, A, Binv, state, mask)  # noqa: E731
+        out = {
+            "apply_K": op.apply_K(r, scale), "apply": A(r),
+            "diagonal": op.diagonal(scale, mask),
+            "block_diagonal_inverse": Binv,
+            "block_jacobi": op.apply_block_jacobi(Binv, r),
+            "energies": op.element_energies_unit(r),
+            "sensitivities": op.compliance_sensitivities(r, rho),
+            "sensitivity_filter": filt.sensitivity_filter(rho, sens),
+            "density_filter": filt.density_filter(rho),
+            "chain_rule": filt.chain_rule(sens),
+            "amg level-1 blocks": state["blocks"][0],
+            "amg fine l1 inverses": state["Binv0"],
+            "amg coarsest factor": state["L"][0],
+            "amg V-cycle": M(r),
+        }
+        same = None
+        if device == "cuda":
+            same = (torch.equal(A(r), A(r)), torch.equal(M(r), M(r)))
+        return out, amg, filt.neighbor_route, same
+
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        got, amg, route, (same_A, same_M) = outputs(dtype, "cuda")
+        want = outputs(dtype, "cpu")[0]
+        worst = 0.0
+        for name in got:
+            assert got[name].is_cuda and got[name].dtype == dtype
+            rel = max_rel(got[name], want[name])
+            worst = max(worst, rel)
+            ok = rel <= tol and bool(torch.isfinite(got[name]).all())
+            assert ok, f"{name} {dtype}: card vs CPU {rel:.3e} > {tol:g}"
+        phase("unstructured-ops", f"12x6x6 tets ({mesh.n_cells} cells, "
+              f"{mesh.n_dofs} dofs) {str(dtype)[6:]}: {len(got)} outputs "
+              f"(operator, filter, AMG setup and V-cycle; levels "
+              f"{[mesh.n_nodes] + amg.sizes} nodes) card vs CPU: worst "
+              f"max_abs_err/max|out| {worst:.3e} (tol {tol:g}); two "
+              f"applies bitwise equal: {same_A}, two V-cycles bitwise "
+              f"equal: {same_M} ok")
+        assert same_A and same_M
+    phase("unstructured-ops", f"neighbour search route: {route}")
+
+
+@contextlib.contextmanager
+def patched_unstructured_step(captured, times=None):
+    """simp_optimize builds its UnstructuredStep so that the host seconds
+    of the build go to captured["build_s"] and the step object to
+    captured["us"]; with `times`, every AMG setup and every CG solve is
+    timed with the device synchronised on both sides (times["setup"],
+    times["solve"])."""
+    from easysimp_tpu_torch.opt import optimize_unstructured as ou
+
+    build, solve = ou.build_unstructured_step, ou.cg_solve
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        us = build(*a, **kw)
+        torch.cuda.synchronize()
+        captured.update(us=us, build_s=time.perf_counter() - t0)
+        if times is not None:
+            us.amg.setup = timed(us.amg.setup, times["setup"])
+        return us
+
+    ou.build_unstructured_step = wrapped
+    if times is not None:
+        ou.cg_solve = timed(solve, times["solve"])
+    try:
+        yield
+    finally:
+        ou.build_unstructured_step, ou.cg_solve = build, solve
+
+
+def replay_or_event_ms(fn):
+    """(median device ms of fn, how): CUDA-graph replays where fn captures,
+    else CUDA events around back-to-back calls."""
+    try:
+        return interleaved_ms([fn])[0], "CUDA-graph replays"
+    except Exception as exc:  # noqa: BLE001
+        torch.cuda.synchronize()
+        phase("main-unstructured", f"  no graph capture "
+              f"({type(exc).__name__}: {str(exc)[:120]}); event-timed")
+        return interleaved_ms([fn], graph=False)[0], "CUDA events"
+
+
+def run_main_unstructured(pt, ck, n=44, iterations=5):
+    """Phase 14: the unstructured main path on the card, as a user runs
+    it, then once more with a synchronising timer around each AMG setup and
+    each CG solve."""
+    nels = (n, n, n)
+    mesh, loads, bcs = tet_cantilever(pt, nels)
+    params = unstructured_params(pt, iterations)
+    for fn in (ck.voxel_matvec, ck.voxel_energies):
+        fn.launches = 0
+    first, second = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched_unstructured_step(first):
+        res = pt.simp_optimize(mesh, loads, bcs, params)  # device="cuda"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"voxel_matvec": ck.voxel_matvec.launches,
+                "voxel_energies": ck.voxel_energies.launches}
+    us = first["us"]
+    assert us.device.type == "cuda" and us.dtype == torch.float32
+    parts = us.build_seconds
+    rest = first["build_s"] - sum(parts.values())
+    amg = us.amg
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
+    phase("main-unstructured", f"{n}^3 x 6 tets: {mesh.n_cells} cells, "
+          f"{mesh.n_nodes} nodes, {mesh.n_dofs} dofs, float32; host build "
+          f"{first['build_s']:.2f} s: AMG aggregation "
+          f"{parts['amg_aggregation']:.2f}, prolongators "
+          f"{parts['amg_prolongator']:.2f}, neighbour search and filter "
+          f"table {parts['neighbor_search']:.2f}, element stiffnesses "
+          f"(numpy float64) and incidence table {parts['elements']:.2f}, "
+          f"AMG pair structures {parts['amg_structure']:.2f}, the rest "
+          f"{rest:.2f}")
+    phase("main-unstructured", f"  hierarchy: nodes per level "
+          f"{[mesh.n_nodes] + amg.sizes}, block pairs per level "
+          f"{[int(r.shape[0]) for r in amg.pair_rows]}, coarsest dense "
+          f"{amg.nc} dofs, {len(amg.chunk_slices)} assembly chunks; node "
+          f"valence table {tuple(us.op.node_slots.shape)}, filter table "
+          f"{tuple(us.filt.neighbors.shape)}")
+
+    t = {"setup": [], "solve": []}   # the final analysis is the last entry
+    with patched_unstructured_step(second, t):
+        timed_res = pt.simp_optimize(mesh, loads, bcs, params)
+    vol_fracs = [v / us.total_volume for v in res.volume_history]
+    phase("main-unstructured", f"  {res.iterations} iterations, "
+          f"seconds/iteration {fmt(res.iteration_seconds)} (median "
+          f"{float(np.median(res.iteration_seconds)):.4f}), CG "
+          f"{res.cg_iterations_history}, total {wall:.2f} s (build and "
+          f"final analysis included), peak memory {peak / 1e9:.3f} GB")
+    phase("main-unstructured", f"  timed run (synchronised around each "
+          f"call): AMG setup s {fmt(t['setup'])}, solve s "
+          f"{fmt(t['solve'])} (the last of each is the final analysis), "
+          f"seconds/iteration {fmt(timed_res.iteration_seconds)}, CG "
+          f"{timed_res.cg_iterations_history}")
+    phase("main-unstructured", f"  energy {res.energy_history}, volume "
+          f"fraction {vol_fracs}, voxel kernel launches {launches}")
+
+    # one operator apply, one V-cycle and one AMG setup on the final design
+    op, mask = us.op, None
+    dev = lambda a: torch.as_tensor(a, dtype=us.dtype, device="cuda")  # noqa
+    mask = dev(pt.build_free_mask(mesh, bcs))
+    scale = op.youngs_modulus(dev(res.densities))
+    r = dev(np.random.default_rng(0).standard_normal(mesh.n_dofs)) * mask
+    A = lambda v: op.apply(v, scale, mask)  # noqa: E731
+    state = amg.setup(scale, mask)
+    again = amg.setup(scale, mask)
+    setup_rel = max(max_rel(a, b) for a, b in
+                    zip(state["blocks"] + state["L"],
+                        again["blocks"] + again["L"]))
+    M = lambda v: amg.apply(v, A, None, state, mask)  # noqa: E731
+    same = torch.equal(A(r), A(r)) and torch.equal(M(r), M(r))
+    apply_ms, how_a = replay_or_event_ms(lambda: A(r))
+    cycle_ms, how_m = replay_or_event_ms(lambda: M(r))
+    # the apply by part: gather, batched element products, fixed-order sum
+    ue, q = op.apply_elements(r)
+    qs = q * scale[:, None]
+    gather_ms, bmm_ms, sum_ms = interleaved_ms([
+        lambda: r[op.dofmap],
+        lambda: torch.bmm(op.ke, ue.unsqueeze(-1)),
+        lambda: op.scatter_dofs(qs)])
+    inv_ms, = interleaved_ms(
+        [lambda: op.block_diagonal_inverse(scale, mask)], graph=False)
+    setup_ms, = interleaved_ms([lambda: amg.setup(scale, mask)],
+                               graph=False)
+    nbytes = (op.ke.nbytes + op.dofmap.nbytes + scale.nbytes
+              + 3 * r.nbytes)
+    phase("main-unstructured", f"  device time on the final design: one "
+          f"operator apply {apply_ms:.4f} ms ({how_a}; its bytes, "
+          f"{nbytes / 1e6:.0f} MB of element matrices, dof map and "
+          f"vectors, take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"3.35 TB/s; by part: gather {gather_ms:.4f}, batched 12x12 "
+          f"products (bmm) {bmm_ms:.4f}, fixed-order sum into the dofs "
+          f"{sum_ms:.4f} ms), one V-cycle {cycle_ms:.4f} ms ({how_m}), one "
+          f"AMG setup {setup_ms:.3f} ms and one batched 3x3 inversion of "
+          f"{mesh.n_nodes} blocks with its assembly {inv_ms:.3f} ms (CUDA "
+          f"events); applies and V-cycles bitwise equal on repeat: {same}; "
+          f"two setups (index_add_ assemblies) differ by {setup_rel:.3e} "
+          f"of max")
+    assert same
+    assert res.iterations == iterations
+    for run in (res, timed_res):
+        e = run.energy_history
+        assert all(math.isfinite(x) for x in e) and math.isfinite(run.energy)
+        assert all(b < a for a, b in zip(e, e[1:])), e
+        assert all(c < params.cg_maxiter for c in run.cg_iterations_history)
+    assert all(abs(v - 0.3) <= 1e-4 for v in vol_fracs), vol_fracs
+    assert np.all(np.isfinite(res.densities))
+    assert np.all(np.isfinite(res.displacements))
+    assert res.densities.shape == (mesh.n_cells,)
+    assert all(abs(a - b) <= 5e-3 * abs(b) for a, b in
+               zip(timed_res.energy_history, res.energy_history))
+    assert launches == {"voxel_matvec": 0, "voxel_energies": 0}, launches
+    del state, again, first, second
+    torch.cuda.empty_cache()
+    # the same composition on smaller meshes: how the CG count grows with
+    # the size (plain aggregation)
+    for m in (16, 24, 32):
+        small = pt.simp_optimize(*tet_cantilever(pt, (m, m, m)), params)
+        phase("main-unstructured", f"  the same at {m}^3 x 6 tets "
+              f"({6 * m ** 3} cells): CG {small.cg_iterations_history}, "
+              f"seconds/iteration {fmt(small.iteration_seconds)}")
+        assert all(c < params.cg_maxiter
+                   for c in small.cg_iterations_history)
+    return launches
+
+
+def run_e2e_unstructured(pt, ck):
+    """Phase 15: trajectories on 12x6x6 tets: float64 on the card against
+    the CPU, float32 on the card against float64."""
+    nels = (12, 6, 6)
+    runs = {}
+    for name, dtype, device, cg in [("float64 card", "float64", "cuda", 1e-8),
+                                    ("float64 CPU", "float64", "cpu", 1e-8),
+                                    ("float32 card", "float32", "cuda", 1e-5)]:
+        params = unstructured_params(pt, 6, dtype=dtype, cg_rtol=cg,
+                                     cg_rtol_max=cg)
+        runs[name] = pt.simp_optimize(*tet_cantilever(pt, nels), params,
+                                      device=device)
+    base = runs["float64 card"]
+    for name, rtol, counts in [("float64 CPU", 1e-8, True),
+                               ("float32 card", 5e-3, False)]:
+        other = runs[name]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(other.energy_history, base.energy_history))
+        ok = len(other.energy_history) == len(base.energy_history) == 6 \
+            and rel <= rtol and (not counts or other.cg_iterations_history
+                                 == base.cg_iterations_history)
+        phase("e2e-unstructured", f"{nels} tets AMG, float64 card vs "
+              f"{name}: energy max rel diff {rel:.3e} (tol {rtol:g}), CG "
+              f"{base.cg_iterations_history} vs "
+              f"{other.cg_iterations_history}"
+              f"{' (must be equal)' if counts else ''} "
+              f"{'ok' if ok else 'FAIL'}")
+        assert ok
+
+
 MG_RANGES = [("mg:setup", "im2col and setup"),
              ("mg:dense_solve", "dense solve"),
              ("mg:transfer", "transfers"),
@@ -1279,10 +1603,15 @@ def main() -> int:
         launches_lame = run_main_lame(pt, ck, res_mg)
         run_continuation(pt, ck, res_mg)
         check_io(pt, ck, grid_mg, res_mg)
+        del res_mg
+        check_unstructured_ops(pt, ck)
+        launches_un = run_main_unstructured(pt, ck)
+        run_e2e_unstructured(pt, ck)
         kernels = [{
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "launches_lame": launches_lame[name], **timing[name],
+            "launches_lame": launches_lame[name],
+            "launches_unstructured": launches_un[name], **timing[name],
         } for name in ("voxel_matvec", "voxel_energies")]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """easysimp_tpu_torch — the PyTorch / CUDA port of easysimp_tpu.
 
-The voxel SIMP loop of the JAX package, run on tensors on a CUDA device
-unless the caller asks for the CPU (`device="cpu"`).  On a CUDA device the
-stiffness matvec and the element energies run as hand-written CUDA kernels
-for sm_90a (ops/cuda_kernels.py); on the CPU their plain PyTorch versions
-run.  The package imports torch, numpy and scipy, never jax: the JAX
+The SIMP loop of the JAX package, on voxel grids and on imported tet4/hex8
+meshes, run on tensors on a CUDA device unless the caller asks for the CPU
+(`device="cpu"`).  On a CUDA device the voxel stiffness matvec and element
+energies run as hand-written CUDA kernels for sm_90a (ops/cuda_kernels.py);
+on the CPU their plain PyTorch versions run.  The unstructured path
+(mesh.py, ops/amg.py, opt/optimize_unstructured.py) is library tensor ops
+on both, as the reference runs it outside any hand kernel.  The package imports torch, numpy and scipy, never jax: the JAX
 package stays the reference that the tests hold the port against.
 
 Module names follow easysimp_tpu, so each port has its counterpart there.
@@ -41,13 +43,23 @@ from .ops.elements import (
     lame_parameters,
     simp_youngs_modulus,
 )
-from .ops.filters import VoxelFilter, create_filter_cache
-from .ops.operator import VoxelOperator
+from .mesh import UnstructuredMesh, import_mesh, tet_mesh_from_grid
+from .ops.filters import (
+    FilterCacheTypes,
+    UnstructuredFilter,
+    VoxelFilter,
+    create_filter_cache,
+)
+from .ops.operator import UnstructuredOperator, VoxelOperator
 from .opt.optimize import build_voxel_step, simp_optimize
+from .opt.optimize_unstructured import (
+    build_unstructured_step,
+    simp_optimize_unstructured,
+)
 from .opt.verify_sensitivities import verify_sensitivities
 from .post.bc_export import export_boundary_conditions
 from .post.vtu import create_results_data, export_results_vtu
-from .stress import StressField, voxel_stresses
+from .stress import StressField, unstructured_stresses, voxel_stresses
 from .utils.terminal import (
     print_data,
     print_error,
@@ -72,9 +84,12 @@ __all__ = [
     "get_boundary_facets",
     "create_material_model", "create_simp_material_model",
     "hex8_stiffness", "lame_parameters", "simp_youngs_modulus",
-    "VoxelFilter", "create_filter_cache", "VoxelOperator",
-    "build_voxel_step", "simp_optimize", "verify_sensitivities",
-    "StressField", "voxel_stresses",
+    "UnstructuredMesh", "import_mesh", "tet_mesh_from_grid",
+    "VoxelFilter", "UnstructuredFilter", "FilterCacheTypes",
+    "create_filter_cache", "VoxelOperator", "UnstructuredOperator",
+    "build_voxel_step", "simp_optimize", "build_unstructured_step",
+    "simp_optimize_unstructured", "verify_sensitivities",
+    "StressField", "voxel_stresses", "unstructured_stresses",
     "create_results_data", "export_results_vtu",
     "export_boundary_conditions",
     "calculate_volume", "calculate_element_volumes",

@@ -77,13 +77,17 @@ def apply_sliding_boundary(grid, nodes, fixed_components) -> DirichletBC:
 def build_free_mask(grid, bcs, dtype=np.float64) -> np.ndarray:
     """Build the free-dof mask (1 = free, 0 = constrained).
 
-    Returns an (nnx, nny, nnz, 3) node-field mask.  Voxel grids only in
-    this port.
+    For a VoxelGrid returns an (nnx, nny, nnz, 3) node-field mask; for an
+    unstructured mesh a flat (3*n_nodes,) vector.
     """
     from .grids import VoxelGrid
 
     if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
+        mask = np.ones(3 * grid.n_nodes, dtype=dtype)
+        for bc in bcs:
+            for c in bc.components:
+                mask[3 * np.asarray(bc.nodes) + c] = 0.0
+        return mask
     nnx, nny, nnz = grid.nnodes_per_axis
     mask = np.ones((nnx, nny, nnz, 3), dtype=dtype)
     for bc in bcs:

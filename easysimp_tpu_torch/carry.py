@@ -16,8 +16,8 @@ import torch
 from .config import resolve_dtype
 from .params import OptimizationParameters
 
-__all__ = ["params_from_reference", "fields_from_numpy",
-           "power_vectors_from_numpy"]
+__all__ = ["params_from_reference", "mesh_from_reference",
+           "fields_from_numpy", "power_vectors_from_numpy"]
 
 
 def params_from_reference(obj, material_model=None) -> OptimizationParameters:
@@ -43,14 +43,34 @@ def params_from_reference(obj, material_model=None) -> OptimizationParameters:
     return OptimizationParameters(**kw)
 
 
+def mesh_from_reference(obj):
+    """The port's `UnstructuredMesh` from an `easysimp_tpu` mesh, read by
+    attribute (`node_coords`, `connectivity`, `cell_type`, `cellsets`); the
+    reference class is never imported.  The arrays are copied."""
+    from .mesh import UnstructuredMesh
+
+    return UnstructuredMesh(
+        node_coords=np.array(obj.node_coords, dtype=np.float64),
+        connectivity=np.array(obj.connectivity, dtype=np.int64),
+        cell_type=str(obj.cell_type),
+        cellsets={k: np.array(v) for k, v in dict(obj.cellsets).items()})
+
+
 def fields_from_numpy(design, u, *, dtype, device="cuda"):
-    """(design (nx, ny, nz), u (nx+1, ny+1, nz+1, 3)) numpy arrays in the JAX
-    layouts -> tensors of `dtype` on `device`."""
+    """Numpy arrays in the JAX layouts -> tensors of `dtype` on `device`:
+    the voxel fields (design (nx, ny, nz), u (nx+1, ny+1, nz+1, 3)) or the
+    flat fields of the unstructured path (design (n_cells,), u
+    (3*n_nodes,))."""
     design = np.asarray(design)
     u = np.asarray(u)
-    if design.ndim != 3:
-        raise ValueError(f"design must be (nx, ny, nz), got {design.shape}")
-    if u.shape != (*(n + 1 for n in design.shape), 3):
+    if design.ndim == 1:
+        if u.ndim != 1 or u.shape[0] % 3:
+            raise ValueError(f"a flat design goes with a flat u of "
+                             f"3*n_nodes entries, got {u.shape}")
+    elif design.ndim != 3:
+        raise ValueError(f"design must be (nx, ny, nz) or (n_cells,), got "
+                         f"{design.shape}")
+    elif u.shape != (*(n + 1 for n in design.shape), 3):
         raise ValueError(f"u must be (nx+1, ny+1, nz+1, 3) for design "
                          f"{design.shape}, got {u.shape}")
     dt = resolve_dtype(dtype, device)

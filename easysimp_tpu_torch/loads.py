@@ -113,8 +113,10 @@ def _voxel_boundary_facets(grid: VoxelGrid, node_set: set[int]):
 
 def get_boundary_facets(grid, nodes):
     """Public parity API: facets (cell_id, local_face_id) fully inside `nodes`."""
-    pairs, _, _ = _voxel_boundary_facets(grid, set(int(n) for n in nodes))
-    return set(pairs)
+    if isinstance(grid, VoxelGrid):
+        pairs, _, _ = _voxel_boundary_facets(grid, set(int(n) for n in nodes))
+        return set(pairs)
+    return set(grid.boundary_facets_for_nodes(nodes))
 
 
 def _face_quadrature_2d():
@@ -152,6 +154,26 @@ def _quad_face_traction(coords4, traction_fn):
     return fe
 
 
+def _tri_face_traction(coords3, traction_fn):
+    """Integrate traction over one linear triangle face (3-pt edge-midpoint
+    rule, exact for linear tractions; matches 2nd-order face quadrature)."""
+    area_vec = 0.5 * np.cross(coords3[1] - coords3[0], coords3[2] - coords3[0])
+    area = np.linalg.norm(area_vec)
+    # Midpoint rule points (degree-2 exact), weights area/3 each.
+    mids = 0.5 * np.array(
+        [coords3[0] + coords3[1], coords3[1] + coords3[2], coords3[2] + coords3[0]]
+    )
+    # Shape values at edge midpoints
+    Nvals = np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])
+    fe = np.zeros((3, 3), dtype=np.float64)
+    for q in range(3):
+        trac = np.asarray(
+            traction_fn(mids[q, 0], mids[q, 1], mids[q, 2]), dtype=np.float64
+        )
+        fe += np.outer(Nvals[q], trac) * (area / 3.0)
+    return fe
+
+
 def apply_surface_traction(f_nodes: np.ndarray, grid, nodes, traction_fn) -> np.ndarray:
     """Accumulate a surface traction into a (n_nodes, 3) host load array.
 
@@ -159,12 +181,22 @@ def apply_surface_traction(f_nodes: np.ndarray, grid, nodes, traction_fn) -> np.
     face Gauss quadrature of g(x,y,z) over the boundary facets spanned by the
     node set.
     """
-    pairs, faces, conn = _voxel_boundary_facets(
-        grid, set(int(n) for n in nodes))
+    nodes_set = set(int(n) for n in nodes)
     coords = grid.node_coords
-    for cell, lf in pairs:
-        face_nodes = conn[cell, list(faces[lf])]
-        fe = _quad_face_traction(coords[face_nodes], traction_fn)
+    if isinstance(grid, VoxelGrid):
+        pairs, faces, conn = _voxel_boundary_facets(grid, nodes_set)
+        for cell, lf in pairs:
+            face_nodes = conn[cell, list(faces[lf])]
+            fe = _quad_face_traction(coords[face_nodes], traction_fn)
+            np.add.at(f_nodes, face_nodes, fe)
+        return f_nodes
+    # Unstructured: the mesh provides the facets' node lists.
+    for face_nodes in grid.facet_node_lists(nodes_set):
+        face_nodes = np.asarray(face_nodes, dtype=np.int64)
+        if face_nodes.size == 3:
+            fe = _tri_face_traction(coords[face_nodes], traction_fn)
+        else:
+            fe = _quad_face_traction(coords[face_nodes], traction_fn)
         np.add.at(f_nodes, face_nodes, fe)
     return f_nodes
 
@@ -172,10 +204,8 @@ def apply_surface_traction(f_nodes: np.ndarray, grid, nodes, traction_fn) -> np.
 def build_load_field(grid, loads: Sequence[AbstractLoadCondition]) -> np.ndarray:
     """Evaluate all static loads into a host float64 node-force array.
 
-    Returns (nnx, nny, nnz, 3).  Voxel grids only in this port.
+    Returns (nnx, nny, nnz, 3) for a VoxelGrid, (n_nodes, 3) otherwise.
     """
-    if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
     f = np.zeros((grid.n_nodes, 3), dtype=np.float64)
     for load in loads:
         if isinstance(load, PointLoad):
@@ -186,6 +216,8 @@ def build_load_field(grid, loads: Sequence[AbstractLoadCondition]) -> np.ndarray
             raise TypeError(
                 f"Unsupported load condition {type(load)!r}; use PointLoad or "
                 "SurfaceTractionLoad.")
+    if not isinstance(grid, VoxelGrid):
+        return f
     nnx, nny, nnz = grid.nnodes_per_axis
     return f.reshape(nnz, nny, nnx, 3).transpose(2, 1, 0, 3)
 

@@ -1,6 +1,6 @@
-"""Element-level math: SIMP material law and the hex8 element stiffness.
+"""Element-level math: SIMP material law and the element stiffnesses.
 
-Port of the hex8 part of easysimp_tpu/ops/elements.py.  The voxel path
+Port of easysimp_tpu/ops/elements.py.  The voxel path
 precomputes ONE reference 24x24 stiffness for the uniform box element at E=1
 on the host in float64 and scales it per element by E(rho) on the device —
 valid because ke is linear in E at fixed Poisson ratio.  A material model
@@ -9,11 +9,17 @@ instead, since ke is linear in (lam, mu) as well.
 
 Node ordering is the VTK/Ferrite hexahedron order; local dofs are node-major
 (node a's dofs at 3a..3a+2).
+
+The unstructured path precomputes one unit-modulus stiffness PER ELEMENT of
+an imported tet4/hex8 mesh, on the host in float64 (`*_batch_np`); the same
+routines on tensors (`tet4_stiffness_batch`, `hex8_stiffness_batch`) run on
+the device of their input.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "HEX_CORNERS",
@@ -26,6 +32,11 @@ __all__ = [
     "hex8_b_matrices",
     "hex8_stiffness_lame_basis",
     "hex8_stiffness",
+    "tet4_stiffness_batch",
+    "hex8_stiffness_batch",
+    "element_stiffness_batch_np",
+    "element_stiffness_lame_basis_batch_np",
+    "shape_integrals_batch_np",
 ]
 
 # VTK / Ferrite RefHexahedron vertex order, as unit-cube corner offsets.
@@ -186,3 +197,189 @@ def hex8_stiffness(spacing, E=1.0, nu=0.3):
     `ke` that the voxel matrix-free operator scales by E(rho) per element.
     """
     return _hex8_stiffness_from_D(spacing, elasticity_matrix(E, nu))
+
+
+# ---------------------------------------------------------------------------
+# Unstructured batched elements on tensors (any device)
+# ---------------------------------------------------------------------------
+
+_TET_DNDL = ((-1.0, -1.0, -1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+             (0.0, 0.0, 1.0))
+
+
+def _b_matrix_batch(dNdx):
+    """Batched B: (n, a, 3) physical gradients -> (n, 6, 3a) Voigt matrix."""
+    n, a, _ = dNdx.shape
+    dx, dy, dz = dNdx[..., 0], dNdx[..., 1], dNdx[..., 2]   # (n, a)
+    zero = torch.zeros_like(dx)
+    # rows of B per node: stack (6, 3) blocks then interleave into (6, 3a)
+    blocks = torch.stack(
+        [
+            torch.stack([dx, zero, zero], dim=-1),
+            torch.stack([zero, dy, zero], dim=-1),
+            torch.stack([zero, zero, dz], dim=-1),
+            torch.stack([dy, dx, zero], dim=-1),
+            torch.stack([zero, dz, dy], dim=-1),
+            torch.stack([dz, zero, dx], dim=-1),
+        ],
+        dim=-2,
+    )  # (n, a, 6, 3)
+    return blocks.permute(0, 2, 1, 3).reshape(n, 6, 3 * a)
+
+
+def tet4_stiffness_batch(coords, E=1.0, nu=0.3):
+    """Batched constant-strain tet4 stiffness: coords (n, 4, 3) tensor ->
+    (ke (n, 12, 12), signed volumes (n,)).
+
+    Linear tetrahedra have constant shape gradients, so the quadrature loop
+    of the reference (FiniteElementAnalysis.jl:174-193 with RefTetrahedron)
+    collapses to one closed-form B^T D B * V per element, evaluated for the
+    whole batch at once.
+    """
+    coords = torch.as_tensor(coords)
+    kw = dict(dtype=coords.dtype, device=coords.device)
+    # Edge matrix J = [x1-x0; x2-x0; x3-x0] (rows), volume = det(J)/6.
+    J = coords[:, 1:4, :] - coords[:, 0:1, :]              # (n, 3, 3)
+    vol = torch.linalg.det(J) / 6.0
+    invJ = torch.linalg.inv(J)
+    # N0 = 1 - L1 - L2 - L3, Ni = Li.  With J_ij = dx_j/dL_i we have
+    # dL_i/dx_j = (J^{-1})_ji, so dN_a/dx_j = sum_i dNdL[a,i] * invJ[j,i].
+    dNdL = torch.tensor(_TET_DNDL, **kw)                   # (4, 3)
+    dNdx = torch.einsum("ai,nxi->nax", dNdL, invJ)         # (n, 4, 3)
+    B = _b_matrix_batch(dNdx)                              # (n, 6, 12)
+    D = torch.as_tensor(elasticity_matrix(E, nu), **kw)
+    ke = torch.einsum("nia,ij,njb,n->nab", B, D, B, vol)
+    return 0.5 * (ke + ke.transpose(1, 2)), vol
+
+
+def hex8_stiffness_batch(coords, E=1.0, nu=0.3):
+    """Batched isoparametric hex8 stiffness: coords (n, 8, 3) tensor ->
+    (ke (n, 24, 24), volumes (n,)).  General (possibly distorted) hexahedra
+    from imported meshes; 2x2x2 Gauss."""
+    coords = torch.as_tensor(coords)
+    kw = dict(dtype=coords.dtype, device=coords.device)
+    pts, wts = _gauss_points_2x2x2()
+    ke = torch.zeros((coords.shape[0], 24, 24), **kw)
+    vol = torch.zeros(coords.shape[0], **kw)
+    D = torch.as_tensor(elasticity_matrix(E, nu), **kw)
+    for q in range(8):
+        dNdxi = torch.as_tensor(_hex8_shape_gradients_ref(pts[q]), **kw)
+        # J_ij = d x_j / d xi_i = sum_a dN_a/dxi_i * x_a_j
+        J = torch.einsum("ai,naj->nij", dNdxi, coords)     # (n, 3, 3)
+        detJ = torch.linalg.det(J)
+        invJ = torch.linalg.inv(J)
+        dNdx = torch.einsum("ai,nxi->nax", dNdxi, invJ)    # (n, 8, 3)
+        B = _b_matrix_batch(dNdx)                          # (n, 6, 24)
+        w = wts[q] * detJ
+        ke = ke + torch.einsum("nia,ij,njb,n->nab", B, D, B, w)
+        vol = vol + w
+    return 0.5 * (ke + ke.transpose(1, 2)), vol
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy, float64) batched elements: the one-time precompute for the
+# unstructured operator.  Always double precision regardless of the device
+# dtype (the unit-ke cache is the analogue of the reference's
+# initialize_element_cache and must not inherit float32 truncation).
+# ---------------------------------------------------------------------------
+
+def _b_matrix_batch_np(dNdx):
+    n, a, _ = dNdx.shape
+    B = np.zeros((n, 6, 3 * a), dtype=np.float64)
+    dx, dy, dz = dNdx[..., 0], dNdx[..., 1], dNdx[..., 2]
+    idx = 3 * np.arange(a)
+    B[:, 0, idx + 0] = dx
+    B[:, 1, idx + 1] = dy
+    B[:, 2, idx + 2] = dz
+    B[:, 3, idx + 0] = dy
+    B[:, 3, idx + 1] = dx
+    B[:, 4, idx + 1] = dz
+    B[:, 4, idx + 2] = dy
+    B[:, 5, idx + 0] = dz
+    B[:, 5, idx + 2] = dx
+    return B
+
+
+def element_stiffness_batch_np(coords, E=1.0, nu=0.3):
+    """Batched unit-modulus ke in numpy float64.
+
+    coords: (n, 4, 3) tet4 or (n, 8, 3) hex8 (VTK order).
+    Returns (ke (n, d, d), volumes (n,)).
+    """
+    return _stiffness_batch_np(coords, elasticity_matrix(E, nu))
+
+
+def element_stiffness_lame_basis_batch_np(coords):
+    """Batched Lamé-basis stiffnesses: (ke_lam (n,d,d), ke_mu (n,d,d)).
+
+    ke_e(lam, mu) = lam * ke_lam_e + mu * ke_mu_e exactly (D is linear in
+    the Lamé parameters): the unstructured analogue of
+    `hex8_stiffness_lame_basis`, which gives the reference's
+    variable-material branch (`assemble_variable_material!`,
+    FiniteElementAnalysis.jl:719-743) on imported tet4/hex8 meshes without
+    per-iteration re-quadrature.
+    """
+    kl, _ = _stiffness_batch_np(coords, elasticity_matrix_lame(1.0, 0.0))
+    km, _ = _stiffness_batch_np(coords, elasticity_matrix_lame(0.0, 1.0))
+    return kl, km
+
+
+def _stiffness_batch_np(coords, D):
+    """Batched ke for a fixed 6x6 elasticity matrix D; see
+    element_stiffness_batch_np."""
+    coords = np.asarray(coords, dtype=np.float64)
+    n, nn, _ = coords.shape
+    if nn == 4:
+        J = coords[:, 1:4, :] - coords[:, 0:1, :]
+        detJ = np.linalg.det(J)
+        vol = detJ / 6.0
+        invJ = np.linalg.inv(J)
+        dNdL = np.array([[-1.0, -1.0, -1.0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+        dNdx = np.einsum("ai,nxi->nax", dNdL, invJ)
+        B = _b_matrix_batch_np(dNdx)
+        ke = np.einsum("nia,ij,njb,n->nab", B, D, B, vol)
+    elif nn == 8:
+        pts, wts = _gauss_points_2x2x2()
+        ke = np.zeros((n, 24, 24), dtype=np.float64)
+        vol = np.zeros(n, dtype=np.float64)
+        for q in range(8):
+            dNdxi = _hex8_shape_gradients_ref(pts[q])
+            J = np.einsum("ai,naj->nij", dNdxi, coords)
+            detJ = np.linalg.det(J)
+            invJ = np.linalg.inv(J)
+            dNdx = np.einsum("ai,nxi->nax", dNdxi, invJ)
+            B = _b_matrix_batch_np(dNdx)
+            w = wts[q] * detJ
+            ke += np.einsum("nia,ij,njb,n->nab", B, D, B, w)
+            vol += w
+    else:
+        raise ValueError(f"unsupported element with {nn} nodes")
+    return 0.5 * (ke + ke.transpose(0, 2, 1)), vol
+
+
+def shape_integrals_batch_np(coords):
+    """integral(N_a) dOmega per element node, numpy float64: (n, nn).
+
+    Used by the variable-density body force (the reference integrates this
+    with cell quadrature per element, FiniteElementAnalysis.jl:504-517).
+    """
+    coords = np.asarray(coords, dtype=np.float64)
+    n, nn, _ = coords.shape
+    if nn == 4:
+        J = coords[:, 1:4, :] - coords[:, 0:1, :]
+        vol = np.linalg.det(J) / 6.0
+        return np.repeat(vol[:, None] / 4.0, 4, axis=1)
+    if nn == 8:
+        pts, wts = _gauss_points_2x2x2()
+        out = np.zeros((n, 8), dtype=np.float64)
+        for q in range(8):
+            xi = pts[q]
+            s = _XI
+            N = 0.125 * (1 + s[:, 0] * xi[0]) * (1 + s[:, 1] * xi[1]) \
+                * (1 + s[:, 2] * xi[2])
+            dNdxi = _hex8_shape_gradients_ref(xi)
+            J = np.einsum("ai,naj->nij", dNdxi, coords)
+            detJ = np.linalg.det(J)
+            out += wts[q] * detJ[:, None] * N[None, :]
+        return out
+    raise ValueError(f"unsupported element with {nn} nodes")

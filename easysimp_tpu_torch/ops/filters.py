@@ -1,6 +1,7 @@
-"""Sensitivity and density filters on voxel grids.
+"""Sensitivity and density filters.
 
-Port of `VoxelFilter` (easysimp_tpu/ops/filters.py:73-165).  On a uniform
+Port of easysimp_tpu/ops/filters.py: `VoxelFilter` (:73-165) and
+`UnstructuredFilter` (:168-224).  On a uniform
 voxel grid the reference's KD-tree cone filter H_ij = max(0, R - ||x_i-x_j||)
 is a fixed 3-D stencil: one zero-padded `conv3d` with the cone kernel, plus a
 normalization field W = conv(ones) that reproduces the boundary handling
@@ -12,7 +13,17 @@ so they cancel where the reference formulas divide by them.
   chain rule:   out_e  = conv(s / W)_e
 
 A float32 conv3d on CUDA runs in full float32 (TF32 is pinned off in
-`config.py`).  The unstructured filter is not ported yet.
+`config.py`).
+
+For unstructured meshes the neighbour lists are built on the host (the
+port's native C++ grid-hash search, or scipy's cKDTree when g++ is missing)
+and padded to a rectangular (n_cells, max_neighbors) gather table, so the
+device-side filter is a gather and a weighted row reduction:
+
+  sensitivity:  filt_i = sum_j H_ij rho_j s_j / V_j
+                         / (max(1e-3, rho_i) / V_i * sum_j H_ij)
+  density:      rho~_e = sum_j H_ej V_j rho_j / sum_j H_ej V_j
+  chain rule:   out_e  = sum_i H_ie V_e / (sum_j H_ij V_j) * s_i
 """
 
 from __future__ import annotations
@@ -23,7 +34,44 @@ import torch.nn.functional as F
 
 from ..utils.terminal import print_data
 
-__all__ = ["VoxelFilter", "create_filter_cache"]
+__all__ = ["VoxelFilter", "UnstructuredFilter", "FilterCacheTypes",
+           "create_filter_cache"]
+
+
+def _fixed_radius_csr(centers, radius):
+    """All-pairs fixed-radius neighbors as CSR, and the route taken:
+    (offsets, idx, cone weights, "native" or "scipy").
+
+    Prefers the native C++ grid-hash search (easysimp_tpu_torch/native) and
+    falls back to scipy.cKDTree when its build is unavailable; the route
+    taken is printed."""
+    try:
+        from .. import native
+
+        if native.is_available():
+            out = native.neighbor_search(centers, radius)
+            print_data("Neighbour search: native C++ grid hash")
+            return (*out, "native")
+    except Exception:
+        pass  # fall through to scipy
+
+    from scipy.spatial import cKDTree
+
+    print_data("Neighbour search: scipy cKDTree (native build unavailable)")
+    n = centers.shape[0]
+    tree = cKDTree(centers)
+    lists = tree.query_ball_point(centers, r=radius)
+    counts = np.array([len(l) for l in lists], dtype=np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    idx = np.empty(offsets[-1], dtype=np.int32)
+    weights = np.empty(offsets[-1], dtype=np.float64)
+    for i, l in enumerate(lists):
+        a = np.asarray(l, dtype=np.int32)
+        d = np.linalg.norm(centers[a] - centers[i], axis=1)
+        idx[offsets[i] : offsets[i + 1]] = a
+        weights[offsets[i] : offsets[i + 1]] = np.maximum(0.0, radius - d)
+    return offsets, idx, weights, "scipy"
 
 
 def _cone_kernel(spacing, radius):
@@ -85,12 +133,88 @@ class VoxelFilter:
         return self._conv(sens_physical / self.weight_sum)
 
 
-def create_filter_cache(grid, filter_radius_ratio, dtype=torch.float32,
-                        device="cuda"):
+class UnstructuredFilter:
+    """Padded-neighbor-list filters for imported meshes.
+
+    A host-side fixed-radius query (the reference's
+    NearestNeighbors.inrange, FilterCommon.jl:82-90) produces a rectangular
+    (n_cells, max_nb) index table + cone weights on `device`; the applies
+    are gathers and row reductions (no scatter, so the sums have a fixed
+    order).
+    """
+
+    def __init__(self, cell_centers, element_volumes, filter_radius,
+                 dtype=torch.float32, device="cuda"):
+        centers = np.asarray(cell_centers, dtype=np.float64)
+        vols = np.asarray(element_volumes, dtype=np.float64)
+        n = centers.shape[0]
+        self.filter_radius = float(filter_radius)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        offsets, idx, w_csr, self.neighbor_route = _fixed_radius_csr(
+            centers, self.filter_radius)
+        counts = np.diff(offsets)
+        max_nb = int(counts.max())
+        nb = np.zeros((n, max_nb), dtype=np.int64)
+        w = np.zeros((n, max_nb), dtype=np.float64)
+        # CSR -> padded rows (padded entries keep weight 0)
+        cols = (np.arange(len(idx)) - np.repeat(offsets[:-1], counts))
+        rows = np.repeat(np.arange(n), counts)
+        nb[rows, cols] = idx
+        w[rows, cols] = w_csr
+        self.neighbors = torch.as_tensor(nb, device=self.device)
+        self.weights = torch.as_tensor(w, dtype=dtype, device=self.device)
+        self.volumes = torch.as_tensor(vols, dtype=dtype, device=self.device)
+        # sum_j H_ij and sum_j H_ij V_j, both including only real neighbors
+        self.weight_sum = self.weights.sum(dim=1)
+        self.wv_sum = (self.weights * self.volumes[self.neighbors]).sum(dim=1)
+        print_data(
+            f"FilterCache created: {n} cells, r={self.filter_radius:.4f}, "
+            f"avg_neighbors={counts.mean():.1f}"
+        )
+
+    def sensitivity_filter(self, design_rho, sens):
+        rho_j = design_rho[self.neighbors]
+        s_j = sens[self.neighbors]
+        v_j = self.volumes[self.neighbors]
+        num = (self.weights * rho_j * s_j / v_j).sum(dim=1)
+        rho_safe = torch.clamp(design_rho, min=1e-3)
+        den = rho_safe / self.volumes * self.weight_sum
+        return torch.where(self.weight_sum > 1e-12, num / den, sens)
+
+    def density_filter(self, design_rho):
+        rho_j = design_rho[self.neighbors]
+        v_j = self.volumes[self.neighbors]
+        num = (self.weights * v_j * rho_j).sum(dim=1)
+        return torch.where(self.wv_sum > 1e-12, num / self.wv_sum,
+                           design_rho)
+
+    def chain_rule(self, sens_physical):
+        # out_e = V_e * sum_{i in nb(e)} H_ei * s_i / (sum_j H_ij V_j)
+        # (H symmetric; neighbor relation symmetric).
+        ratio = torch.where(self.wv_sum > 1e-12,
+                            sens_physical / self.wv_sum,
+                            torch.zeros_like(sens_physical))
+        return self.volumes * (self.weights
+                               * ratio[self.neighbors]).sum(dim=1)
+
+
+#: Types a filter cache may be (for isinstance checks in user code).
+FilterCacheTypes = (VoxelFilter, UnstructuredFilter)
+
+
+def create_filter_cache(grid, filter_radius_ratio, element_volumes=None,
+                        dtype=torch.float32, device="cuda"):
     """Filter cache with radius = ratio x characteristic element size
-    (FilterCommon.jl:61-98).  Voxel grids only in this port."""
+    (FilterCommon.jl:61-98).  Dispatches on the grid type: VoxelGrid ->
+    convolution filter, unstructured mesh -> padded neighbor lists."""
     from ..grids import VoxelGrid
 
-    if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("the unstructured filter is not ported yet")
-    return VoxelFilter(grid, filter_radius_ratio, dtype=dtype, device=device)
+    if isinstance(grid, VoxelGrid):
+        return VoxelFilter(grid, filter_radius_ratio, dtype=dtype,
+                           device=device)
+    radius = float(filter_radius_ratio) * grid.characteristic_element_size
+    vols = element_volumes if element_volumes is not None \
+        else grid.element_volumes
+    return UnstructuredFilter(grid.cell_centers, vols, radius, dtype=dtype,
+                              device=device)

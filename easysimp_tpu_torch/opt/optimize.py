@@ -1,4 +1,5 @@
-"""The SIMP optimization loop (voxel grids).
+"""The SIMP optimization loop (voxel grids; `simp_optimize` hands an
+UnstructuredMesh to opt/optimize_unstructured.py).
 
 Port of `build_voxel_step` and `simp_optimize` (easysimp_tpu/opt/optimize.py
 :215, :527).  One SIMP iteration: density filter -> matrix-free PCG solve ->
@@ -363,10 +364,11 @@ def simp_optimize(grid, loads, boundary_conditions,
                   params: OptimizationParameters, acceleration_data=None,
                   mesh=None, resume_from=None, *,
                   device="cuda") -> OptimizationResult:
-    """Run SIMP topology optimization on a voxel grid.
+    """Run SIMP topology optimization on a voxel grid or an imported mesh.
 
     Args:
-      grid: VoxelGrid.
+      grid: VoxelGrid, or an UnstructuredMesh (tet4/hex8; mesh.py), which
+        runs through opt/optimize_unstructured.py.
       loads: list of PointLoad / SurfaceTractionLoad.
       boundary_conditions: list of DirichletBC.
       params: OptimizationParameters.
@@ -382,7 +384,11 @@ def simp_optimize(grid, loads, boundary_conditions,
         for.
     """
     if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
+        from .optimize_unstructured import simp_optimize_unstructured
+
+        return simp_optimize_unstructured(
+            grid, loads, boundary_conditions, params, acceleration_data,
+            resume_from=resume_from, device_mesh=mesh, device=device)
     if mesh is not None:
         raise NotImplementedError(
             "not ported yet: mesh (multi-device; see ROADMAP.md)")

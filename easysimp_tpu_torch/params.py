@@ -1,9 +1,9 @@
 """Optimization parameters and result containers.
 
 Field for field the same as easysimp_tpu/params.py, so that `carry.py` can
-copy a reference parameter object by attribute.  On a voxel grid on one
-device every field acts as in the reference; the AMG knobs belong to the
-unstructured path, which is not ported yet.
+copy a reference parameter object by attribute.  On one device every field
+acts as in the reference; the AMG knobs belong to the unstructured path
+(ops/amg.py), the mg_* knobs to the voxel path.
 """
 
 from __future__ import annotations
@@ -71,8 +71,9 @@ class OptimizationParameters:
     cg_forcing_coeff: float = 0.05      # rtol_i = coeff * change_{i-1}
     preconditioner: str = "auto"        # auto|jacobi|block_jacobi|amg|multigrid|none
 
-    # Unstructured AMG knobs (the AMG is not ported yet) and the voxel
-    # geometric multigrid's knobs (ops/multigrid.py)
+    # Unstructured AMG knobs (ops/amg.py: the coarsest dense level's size
+    # bound; smoothed-aggregation transfers rebuilt every iteration) and
+    # the voxel geometric multigrid's knobs (ops/multigrid.py)
     amg_max_coarse_dofs: int = 6000
     amg_smooth_prolongator: bool = False
     mg_levels: int = 0

@@ -12,20 +12,23 @@ import numpy as np
 
 from ..grids import VoxelGrid
 from ..utils.terminal import print_success
-from .vtu import VTK_QUAD, write_vtu
+from .vtu import VTK_QUAD, VTK_TRIANGLE, write_vtu
 
 __all__ = ["export_boundary_conditions"]
 
 
 def _all_faces(grid):
-    """(faces (n, 4) node ids, vtk face type) for every cell face."""
-    if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
-    conn = grid.hex_connectivity
-    tables = [(0, 1, 2, 3), (4, 5, 6, 7), (0, 1, 5, 4),
-              (1, 2, 6, 5), (2, 3, 7, 6), (3, 0, 4, 7)]
+    """(faces (n, 3|4) node ids, vtk face type) for every cell face."""
+    from ..mesh import HEX_FACES, TET_FACES
+
+    if isinstance(grid, VoxelGrid):
+        conn, tables, vtk_type = grid.hex_connectivity, HEX_FACES, VTK_QUAD
+    else:
+        conn = grid.connectivity
+        tables = TET_FACES if grid.cell_type == "tet4" else HEX_FACES
+        vtk_type = VTK_TRIANGLE if grid.cell_type == "tet4" else VTK_QUAD
     faces = np.concatenate([conn[:, list(t)] for t in tables], axis=0)
-    return faces, VTK_QUAD
+    return faces, vtk_type
 
 
 def export_boundary_conditions(grid, bcs, loads, path) -> str:

@@ -350,12 +350,15 @@ def create_results_data(grid, result) -> ResultsData:
     (parity: create_results_data, PostProcessing.jl:39-57)."""
     from ..grids import VoxelGrid
 
-    if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
     points = np.asarray(grid.node_coords, dtype=np.float64)
-    cells = grid.hex_connectivity
-    cell_type = VTK_HEXAHEDRON
-    total_volume = grid.total_volume
+    if isinstance(grid, VoxelGrid):
+        cells = grid.hex_connectivity
+        cell_type = VTK_HEXAHEDRON
+        total_volume = grid.total_volume
+    else:
+        cells = grid.connectivity
+        cell_type = VTK_TETRA if cells.shape[1] == 4 else VTK_HEXAHEDRON
+        total_volume = float(np.sum(grid.element_volumes))
 
     disp = np.asarray(result.displacements, dtype=np.float64).reshape(-1, 3)
     stresses = result.stresses

@@ -1,8 +1,9 @@
-"""Stress recovery and von Mises stress on voxel grids.
+"""Stress recovery and von Mises stress.
 
-Port of the voxel part of easysimp_tpu/stress.py: strains at all Gauss
+Port of easysimp_tpu/stress.py.  On voxel grids the strains at all Gauss
 points of all elements come from one einsum against the precomputed B
-matrices.  As in the reference package, von Mises is taken from the
+matrices, on the device; on imported meshes the recovery runs once per run
+on the host in numpy float64, as in the reference.  As in the reference package, von Mises is taken from the
 cell-averaged stress (a documented deviation from EasySIMP.jl, which
 exports the first quadrature point).
 """
@@ -18,7 +19,7 @@ from .ops.cuda_kernels import gather_element_dofs
 from .ops.elements import hex8_b_matrices, lame_parameters, simp_youngs_modulus
 
 __all__ = ["StressField", "voxel_stress_arrays", "voxel_stresses",
-           "von_mises_from_voigt"]
+           "unstructured_stresses", "von_mises_from_voigt"]
 
 
 @dataclass
@@ -97,5 +98,93 @@ def voxel_stresses(grid, u_field, rho_phys, E0, Emin, nu, p,
         avg_stresses=avg_flat,
         von_mises=vm_flat,
         max_von_mises=float(vm_flat[imax]),
+        max_vm_cell=imax,
+    )
+
+
+def _von_mises_np(sig):
+    sxx, syy, szz = sig[..., 0], sig[..., 1], sig[..., 2]
+    sxy, syz, sxz = sig[..., 3], sig[..., 4], sig[..., 5]
+    return np.sqrt(np.maximum(
+        0.0,
+        sxx**2 + syy**2 + szz**2 - sxx * syy - syy * szz - szz * sxx
+        + 3.0 * (sxy**2 + syz**2 + sxz**2)))
+
+
+def unstructured_stresses(mesh, u_flat, rho_phys, E0, Emin, nu, p,
+                          material_model=None) -> StressField:
+    """Host-side (numpy float64) stress recovery for imported meshes.
+
+    One-shot per run (final analysis / checkpoint exports), so host numpy is
+    the right cost/complexity point; batched over all elements.
+    material_model: optional rho -> (lam, mu) closure on tensors (the
+    reference passes its material closure into calculate_stresses_simp the
+    same way, FiniteElementAnalysis.jl:567-580); it is called on a CPU
+    float64 tensor.
+    """
+    from .ops.elements import (
+        _b_matrix_batch_np,
+        _gauss_points_2x2x2,
+        _hex8_shape_gradients_ref,
+    )
+
+    coords = mesh.node_coords[mesh.connectivity]       # (E, nn, 3)
+    nn = coords.shape[1]
+    dofmap = (3 * mesh.connectivity[:, :, None] + np.arange(3)).reshape(
+        mesh.n_cells, -1)
+    ue = np.asarray(u_flat, dtype=np.float64)[dofmap]  # (E, 3nn)
+    rho = np.asarray(rho_phys, dtype=np.float64)
+
+    if material_model is not None:
+        lam, mu = material_model(torch.as_tensor(rho))
+        lam = np.asarray(lam, dtype=np.float64)
+        mu = np.asarray(mu, dtype=np.float64)
+    else:
+        lam, mu = lame_parameters(simp_youngs_modulus(rho, E0, Emin, p), nu)
+
+    def sigma_from_eps(eps):
+        tr = eps[..., 0] + eps[..., 1] + eps[..., 2]
+        sig = np.empty_like(eps)
+        for c in range(3):
+            sig[..., c] = lam * tr + 2.0 * mu * eps[..., c]
+        for c in range(3, 6):
+            sig[..., c] = mu * eps[..., c]   # engineering shear
+        return sig
+
+    if nn == 4:
+        J = coords[:, 1:4, :] - coords[:, 0:1, :]
+        invJ = np.linalg.inv(J)
+        dNdL = np.array([[-1.0, -1.0, -1.0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+        dNdx = np.einsum("ai,nxi->nax", dNdL, invJ)
+        B = _b_matrix_batch_np(dNdx)                   # (E, 6, 12)
+        eps = np.einsum("nck,nk->nc", B, ue)
+        sig = sigma_from_eps(eps)
+        # Constant-strain tets: one evaluation, but the reference's
+        # QuadratureRule{RefTetrahedron}(2) has FOUR quadrature points
+        # (FiniteElementAnalysis.jl:142), so its Dict{cell -> [sigma_qp]}
+        # holds four (identical) tensors per tet: reproduce the shape.
+        qp = np.repeat(sig[:, None, :], 4, axis=1)
+        avg = sig
+    else:
+        pts, _ = _gauss_points_2x2x2()
+        qps = []
+        for q in range(8):
+            dNdxi = _hex8_shape_gradients_ref(pts[q])
+            Jq = np.einsum("ai,naj->nij", dNdxi, coords)
+            invJ = np.linalg.inv(Jq)
+            dNdx = np.einsum("ai,nxi->nax", dNdxi, invJ)
+            B = _b_matrix_batch_np(dNdx)
+            eps = np.einsum("nck,nk->nc", B, ue)
+            qps.append(sigma_from_eps(eps))
+        qp = np.stack(qps, axis=1)                     # (E, 8, 6)
+        avg = qp.mean(axis=1)
+
+    vm = _von_mises_np(avg)
+    imax = int(np.argmax(vm))
+    return StressField(
+        qp_stresses=qp,
+        avg_stresses=avg,
+        von_mises=vm,
+        max_von_mises=float(vm[imax]),
         max_vm_cell=imax,
     )

@@ -11,13 +11,14 @@ def calculate_element_volumes(grid) -> np.ndarray:
     """Per-element volumes (x-fastest cell numbering).
 
     Analogue of `calculate_element_volumes` (FiniteElementAnalysis.jl:754-771);
-    uniform voxels collapse to a constant.
+    uniform voxels collapse to a constant, unstructured meshes carry their
+    precomputed (exact for tet4 / quadrature for hex8) volumes.
     """
     from ..grids import VoxelGrid
 
-    if not isinstance(grid, VoxelGrid):
-        raise NotImplementedError("unstructured meshes are not ported yet")
-    return np.full(grid.n_cells, grid.element_volume, dtype=np.float64)
+    if isinstance(grid, VoxelGrid):
+        return np.full(grid.n_cells, grid.element_volume, dtype=np.float64)
+    return np.asarray(grid.element_volumes, dtype=np.float64)
 
 
 def calculate_volume(grid, densities=None) -> float:

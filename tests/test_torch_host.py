@@ -34,6 +34,12 @@ def test_import_without_jax():
         import easysimp_tpu_torch.models.beam_2x1x1
         import easysimp_tpu_torch.models.cantilever
         import easysimp_tpu_torch.models.tol_study
+        import easysimp_tpu_torch.mesh
+        import easysimp_tpu_torch.native
+        import easysimp_tpu_torch.ops.amg
+        import easysimp_tpu_torch.opt.optimize_unstructured
+        import easysimp_tpu_torch.models.gripper
+        import easysimp_tpu_torch.models.wheel
         bad = [m for m in ("triton", "torch.utils.cpp_extension",
                            "easysimp_tpu") if m in sys.modules]
         assert not bad, bad

@@ -277,14 +277,48 @@ def test_volume_and_mesh_extraction(tmp_path):
     np.testing.assert_array_equal(back.points, grid_p.node_coords)
 
 
-@pytest.mark.parametrize("call", [
-    lambda mesh: pt.create_results_data(mesh, None),
-    lambda mesh: pt.export_boundary_conditions(mesh, [], [], "unused"),
-    lambda mesh: pt.calculate_volume(mesh),
-])
-def test_unstructured_input_is_refused(call):
-    """The unstructured path is not ported yet: its meshes are refused."""
-    from test_unstructured import tet_mesh_from_voxels
+def _results_on_mesh(mod, mesh, tmp_path, tag):
+    """create_results_data on a mesh, written as a VTU: the file's bytes."""
+    n = mesh.n_cells
+    rng = np.random.default_rng(5)
+    result = mod.OptimizationResult(
+        densities=rng.uniform(size=n),
+        displacements=rng.normal(size=mesh.n_dofs), stresses=None,
+        energy=1.5, volume=0.4 * mesh.total_volume, iterations=3,
+        converged=False, energy_history=[2.0, 1.5], volume_history=[0.4],
+        element_energies=rng.uniform(size=n))
+    data = mod.create_results_data(mesh, result)
+    assert data.cell_type == 10 and data.cells.shape == (n, 4)
+    with open(mod.export_results_vtu(data, str(tmp_path / tag)), "rb") as fh:
+        return fh.read()
 
-    with pytest.raises(NotImplementedError):
-        call(tet_mesh_from_voxels((2, 2, 2)))
+
+def _bc_export_on_mesh(mod, mesh, tmp_path, tag):
+    bc = mod.apply_fixed_boundary(
+        mesh, mod.select_nodes_by_plane(mesh, [0, 0, 0], [1, 0, 0], 1e-6))
+    load = mod.PointLoad(mod.select_nodes_by_plane(
+        mesh, [2, 0, 0], [1, 0, 0], 1e-6), [0.0, -1.0, 0.0])
+    with open(mod.export_boundary_conditions(
+            mesh, [bc], [load], str(tmp_path / tag)), "rb") as fh:
+        return fh.read()
+
+
+def _volumes_on_mesh(mod, mesh, tmp_path, tag):
+    rho = np.random.default_rng(6).uniform(size=mesh.n_cells)
+    return (mod.calculate_volume(mesh), mod.calculate_volume(mesh, rho),
+            mod.calculate_element_volumes(mesh).tobytes())
+
+
+@pytest.mark.parametrize("call", [_results_on_mesh, _bc_export_on_mesh,
+                                  _volumes_on_mesh])
+def test_unstructured_input_is_refused(call, tmp_path):
+    """These three calls refused an unstructured mesh until that path was
+    ported; now they take a tet mesh and give the JAX package's output, to
+    the byte."""
+    from easysimp_tpu.mesh import tet_mesh_from_grid
+
+    mesh_p = pt.tet_mesh_from_grid(pt.generate_grid((2, 2, 2)))
+    mesh_r = tet_mesh_from_grid(et.generate_grid((2, 2, 2)))
+    out_p = call(pt, mesh_p, tmp_path, "p")
+    assert out_p == call(et, mesh_r, tmp_path, "r")
+    assert out_p

@@ -214,16 +214,13 @@ def test_auto_without_levels_is_jacobi(capsys):
 @pytest.mark.parametrize("what", ["mesh", "unstructured"])
 def test_unported_options_raise(what):
     """What the port still refuses on the JAX package's signature: a device
-    mesh (multi-device runs) and an unstructured mesh as input."""
+    mesh (multi-device runs), on a voxel grid and on an unstructured mesh
+    (the mesh itself is taken since the unstructured path was ported)."""
     grid, loads, bcs = _cantilever(pt, (4, 2, 2))
     params = pt.OptimizationParameters(max_iterations=1, dtype="float64",
                                        preconditioner="jacobi")
-    kw = {}
-    if what == "mesh":
-        kw["mesh"] = object()
-    else:
-        from test_unstructured import tet_mesh_from_voxels
-
-        grid = tet_mesh_from_voxels((2, 2, 2))
-    with pytest.raises(NotImplementedError):
-        pt.simp_optimize(grid, loads, bcs, params, device="cpu", **kw)
+    if what == "unstructured":
+        grid = pt.tet_mesh_from_grid(grid)
+    with pytest.raises(NotImplementedError, match="not ported yet: "):
+        pt.simp_optimize(grid, loads, bcs, params, device="cpu",
+                         mesh=object())
