@@ -101,6 +101,29 @@ Phases, each of which asserts and prints a line:
  15. e2e-unstructured: 12x6x6 tets, 6 iterations on the card against the
               CPU in float64 (energies rtol 1e-8, CG counts equal) and
               float32 on the card against float64 (5e-3).
+ 16. sharded: the multi-device path, its shards on the visible cards
+              round-robin (cuda:0 repeated when one card is visible; the
+              device list is printed): (b) the sharded masked matvec, M(r)
+              and one SIMP step against one device, both on the card, at
+              24x12x12 float64 over (4,1,1), (2,2,1), (2,2,2) with the
+              coarsest level lowered (EASYSIMP_MAX_COARSE_DOFS=500) so that
+              level 1 is distributed (1e-12 matvec, 1e-10 M(r) and step,
+              equal CG counts), at 128^3 float32 over (4,1,1) (1e-5 of
+              max|out| for the matvec, 1e-4 for M(r) with a float32 cycle:
+              see run_sharded; float64 1e-12 / 1e-10) and at 8x4x4 over
+              (8,1,1), one cell per shard; (c) main-sharded: the main-mg
+              composition at 128^3 for 5 iterations over (4,1,1), then
+              (2,2,2), with the shards' device list printed: energies against
+              main-mg's first 5 (rtol 5e-3), CG within 2, seconds per
+              iteration, launches and halo copies per CG iteration, the
+              distributed levels, the coarse gather's time, peak memory;
+              (a) both kernels against their plain versions at every
+              shard-local block shape (b) and (c) gave them; (d) the
+              dry-run twin (easysimp_tpu_torch/dryrun.py) on the card
+              against the unsharded step on the card (rtol 1e-6, CG 11 on
+              every split) and MULTICHIP_r05.json (rtol 1e-4), and the
+              element-sharded unstructured path on 16^3 x 6 tets over 4
+              shards against one device (float64, rtol 1e-9, equal CG).
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -115,7 +138,8 @@ plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
 launches are those of the main-mg run; `launches_lame` those of one
 main-lame run (5 iterations with the SIMP closure);
 `launches_unstructured` those of the main-unstructured run (0: no TPU
-kernel lies on that path).
+kernel lies on that path); `launches_sharded` those of the two
+main-sharded runs together.
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -1408,6 +1432,300 @@ def run_e2e_unstructured(pt, ck):
         assert ok
 
 
+# --------------------------------------------------------------------------
+# Phase 16: sharded
+# --------------------------------------------------------------------------
+
+def shard_devices(n):
+    """n shard devices: the visible cards round-robin (cuda:0 repeated when
+    one card is visible), as strings for the printed lines."""
+    from easysimp_tpu_torch.parallel.sharding import round_robin_cards
+
+    return [str(d) for d in round_robin_cards(n)]
+
+
+def grid_layout(pt, nels, shape):
+    from easysimp_tpu_torch.parallel.sharding import GridLayout, make_mesh
+
+    n = int(np.prod(shape))
+    return GridLayout(make_mesh(n, shape=shape, devices=shard_devices(n)),
+                      nels)
+
+
+@contextlib.contextmanager
+def recorded_shard_shapes(seen):
+    """Record (kernel, u shape, dtype) of every kernel call the sharded
+    operator makes (a checking harness: the calls and their launch counts
+    are unchanged)."""
+    from easysimp_tpu_torch.parallel import halo
+
+    saved = halo.voxel_matvec, halo.voxel_energies
+
+    def recorded(name, fn):
+        def call(u, *a):
+            seen.add((name, tuple(u.shape), u.dtype))
+            return fn(u, *a)
+        return call
+
+    halo.voxel_matvec = recorded("voxel_matvec", saved[0])
+    halo.voxel_energies = recorded("voxel_energies", saved[1])
+    try:
+        yield
+    finally:
+        halo.voxel_matvec, halo.voxel_energies = saved
+
+
+@contextlib.contextmanager
+def max_coarse_dofs(n):
+    saved = os.environ.get("EASYSIMP_MAX_COARSE_DOFS")
+    os.environ["EASYSIMP_MAX_COARSE_DOFS"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["EASYSIMP_MAX_COARSE_DOFS"]
+        else:
+            os.environ["EASYSIMP_MAX_COARSE_DOFS"] = saved
+
+
+def sharded_vs_unsharded(pt, nels, dtype, shapes, tol_a, tol_m, step=None):
+    """The masked matvec and M(r) over each mesh split against one device,
+    both on the card; with `step`, also one SIMP step of those params."""
+    from easysimp_tpu_torch.ops.multigrid import MultigridPreconditioner
+    from easysimp_tpu_torch.opt.optimize import build_voxel_step
+    from easysimp_tpu_torch.parallel.halo import HaloVoxelOperator
+    from easysimp_tpu_torch.parallel.sharded_multigrid import (
+        ShardedMultigrid,
+    )
+    from easysimp_tpu_torch.parallel.sharding import make_mesh
+
+    kw = dict(smooth_iters=(1, 2))
+    op, mask, scale, r = mg_problem(pt, nels, dtype, "cuda")
+    want_a = op.apply(r, scale, mask)
+    mg = MultigridPreconditioner(op, **kw)
+    state, _ = mg.setup(scale, mask)
+    want_m = mg.make_M(state)(r)
+    if step is not None:
+        vs = build_voxel_step(*cantilever(pt, nels), step)
+        st, _ = vs.setup(vs.design0, vs.power_init(vs.design0))
+        want_step = vs.step(vs.design0, vs.u0, st)
+    for shape in shapes:
+        L = grid_layout(pt, nels, shape)
+        h = HaloVoxelOperator(op, L)
+        smg = ShardedMultigrid(h, **kw)
+        S, M, R = (L.split(scale, "cell"), L.split(mask, "node"),
+                   L.split(r, "node"))
+        err_a = max_rel(L.gather(h.apply(R, S, M)), want_a)
+        sstate, _ = smg.setup(S, M)
+        err_m = max_rel(L.gather(smg.make_M(sstate)(R)), want_m)
+        ok = err_a <= tol_a and err_m <= tol_m
+        msg = (f"{nels} {str(dtype)[6:]} mesh {shape}: matvec "
+               f"{err_a:.3e} (tol {tol_a:g}), M(r) {err_m:.3e} (tol "
+               f"{tol_m:g}) of max|out|, levels {smg.n_levels}, distributed "
+               f"{smg.n_distributed}")
+        if step is not None:
+            vs = build_voxel_step(*cantilever(pt, nels), step,
+                                  mesh=make_mesh(L.n_shards, shape=shape,
+                                                 devices=L.devices))
+            st, _ = vs.setup(vs.design0, vs.power_init(vs.design0))
+            out = vs.step(vs.design0, vs.u0, st)
+            errs = [abs(float(out.energy) / float(want_step.energy) - 1),
+                    max_rel(vs.gather(out.new_design), want_step.new_design),
+                    max_rel(vs.gather(out.u), want_step.u)]
+            ok = ok and max(errs) <= tol_m \
+                and out.cg_iters == want_step.cg_iters
+            msg += (f"; one SIMP step: energy, design, u {errs[0]:.3e} / "
+                    f"{errs[1]:.3e} / {errs[2]:.3e} (tol {tol_m:g}), CG "
+                    f"{out.cg_iters} vs {want_step.cg_iters} (must be equal)")
+        phase("sharded", f"{msg} {'ok' if ok else 'FAIL'}")
+        assert ok
+    del state, want_m, want_a
+    torch.cuda.empty_cache()
+
+
+def check_shard_kernels(pt, ck, seen):
+    """(a) Each kernel against its plain version at every shard-local shape
+    the sharded runs gave it."""
+    from easysimp_tpu_torch.ops.operator import VoxelOperator
+
+    tol = {torch.float64: ("rtol/atol", 1e-12, 1e-11),
+           torch.float32: ("of max|out|", 1e-5, 1e-5),
+           torch.bfloat16: ("of max|out|", 5e-2, 5e-2)}
+    for name, shape, dtype in sorted(seen, key=str):
+        nels = tuple(s - 1 for s in shape[:3])
+        grid = pt.generate_grid(nels, (0.0, 0.0, 0.0), (1.6, 1.1, 0.9))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        op = VoxelOperator(grid, E0=3.0, Emin=1e-9, nu=0.3, p=3.0,
+                           dtype=dtype, device="cuda")
+        u = torch.randn(shape, generator=gen, dtype=torch.float64,
+                        device="cuda").to(dtype)
+        scale = op.youngs_modulus(0.05 + 0.95 * torch.rand(
+            nels, generator=gen, dtype=torch.float64, device="cuda")).to(dtype)
+        kind, t_mv, t_en = tol[dtype]
+        if name == "voxel_matvec":
+            got = ck.voxel_matvec(u, scale, op.ke)
+            want, t = ck.voxel_matvec_plain(u, scale, op.ke), t_mv
+        else:
+            got = ck.voxel_energies(u, op.ke)
+            want, t = ck.voxel_energies_plain(u, op.ke), t_en
+        ok, err, ref = agree(got, want, kind, t)
+        phase("sharded", f"(a) {name} shard block {shape[:3]} nodes "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (max|out| "
+              f"{ref:.3e}, tol {t:g} {kind}) {'ok' if ok else 'FAIL'}")
+        assert ok, f"{name} disagrees with its plain version at {shape}"
+
+
+def run_main_sharded(pt, ck, mg_res):
+    """(c) The main-mg composition at 128^3 over (4,1,1) and (2,2,2)."""
+    from easysimp_tpu_torch.parallel import halo
+    from easysimp_tpu_torch.parallel.sharding import make_mesh
+
+    grid, loads, bcs = cantilever(pt, (128, 128, 128))
+    params = main_mg_params(pt, iterations=5)
+    ref_e = mg_res.energy_history[:5]
+    ref_cg = mg_res.cg_iterations_history[:5]
+    ref_s = float(np.median(mg_res.iteration_seconds[:5]))
+    launches = {"voxel_matvec": 0, "voxel_energies": 0}
+    for shape in [(4, 1, 1), (2, 2, 2)]:
+        n = int(np.prod(shape))
+        captured = {}
+
+        def wrap(vs):
+            captured["vs"] = vs
+            return vs
+
+        mesh = make_mesh(n, shape=shape, devices=shard_devices(n))
+        for fn in (ck.voxel_matvec, ck.voxel_energies):
+            fn.launches = 0
+        c0, b0 = halo.extend.copies, halo.extend.bytes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched_voxel_step(wrap):
+            res = pt.simp_optimize(grid, loads, bcs, params, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        run = {"voxel_matvec": ck.voxel_matvec.launches,
+               "voxel_energies": ck.voxel_energies.launches}
+        copies, nbytes = halo.extend.copies - c0, halo.extend.bytes - b0
+        for k in launches:
+            launches[k] += run[k]
+        cg = sum(res.cg_iterations_history)
+        mg = captured["vs"].precond
+        dist = [mg.ops[lvl].grid.nels for lvl in range(mg.n_distributed)]
+        # the coarse-level gather: one level-(n_distributed - 1) residual
+        # onto the first device (CUDA events, median of 20)
+        lay = mg.layouts[-1]
+        f = lay.split(torch.ones((*(n + 1 for n in lay.nels), 3),
+                                 dtype=torch.bfloat16, device="cuda"), "node")
+        gather_ms = float(np.median(cuda_times(lambda: lay.gather(f),
+                                               runs=20, graph=False)))
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(res.energy_history, ref_e))
+        ok = (len(res.energy_history) == 5 and rel <= 5e-3 and all(
+            abs(a - b) <= 2 for a, b in zip(res.cg_iterations_history,
+                                            ref_cg))
+              and all(v > 0 for v in run.values()))
+        fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
+        phase("sharded", f"(c) main-sharded mesh {shape} on "
+              f"{[str(d) for d in mesh.devices.flat]}: seconds/iteration "
+              f"{fmt(res.iteration_seconds)} (median "
+              f"{float(np.median(res.iteration_seconds)):.4f}; main-mg "
+              f"{ref_s:.4f}), CG {res.cg_iterations_history} vs main-mg "
+              f"{ref_cg} (within 2), energy max rel diff {rel:.3e} (tol "
+              f"5e-3) {'ok' if ok else 'FAIL'}")
+        phase("sharded", f"    launches {run} ({sum(run.values()) / cg:.1f} "
+              f"per CG iteration of the run, {cg} CG iterations), halo "
+              f"copies {copies / cg:.1f} and {nbytes / cg / 1e6:.2f} MB per "
+              f"CG iteration of the run, distributed levels {dist} of "
+              f"{mg.n_levels}, coarse gather (level {mg.n_distributed - 1}, "
+              f"{tuple(n + 1 for n in lay.nels)} nodes bf16) {gather_ms:.4f} "
+              f"ms, peak memory {peak / 1e9:.3f} GB, total {wall:.2f} s")
+        assert ok
+        del res, captured, f
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_sharded_twins(pt, ck):
+    """(d) The dry-run twin on the card, and the element-sharded
+    unstructured path against the unsharded card run."""
+    from easysimp_tpu_torch.dryrun import dryrun_multichip
+    from easysimp_tpu_torch.parallel.sharding import make_element_mesh
+
+    from easysimp_tpu_torch import dryrun
+
+    results = dryrun_multichip(8)   # the cards, round-robin
+    one = dryrun._one_step(dryrun._build((16, 8, 8), max_cg=50))
+    e1 = float(one.energy)
+    # against the unsharded step on the card (rtol 1e-6, equal CG) and
+    # against the JAX package's record (rtol 1e-4: float32 solves stopped at
+    # rtol 1e-6, rounded by the card's 3xTF32 kernels, not XLA's CPU)
+    ok = all(abs(e - e1) <= 1e-6 * e1 and cg == one.cg_iters == 11
+             and abs(e - 4.009019e+01) <= 1e-4 * 4.009019e+01
+             for _, e, cg in results[:3]) and \
+        abs(results[3][1] - 8.712991e+01) <= 1e-4 * 8.712991e+01
+    phase("sharded", f"(d) dry-run twin on {shard_devices(8)}: {results}; "
+          f"unsharded on the card {e1:.6e} CG {one.cg_iters} (rtol 1e-6, "
+          f"equal CG); MULTICHIP_r05.json 4.009019e+01 with CG 11 per "
+          f"split, 8.712991e+01 (rtol 1e-4) {'ok' if ok else 'FAIL'}")
+    assert ok
+    nels = (16, 16, 16)
+    params = unstructured_params(pt, 3, dtype="float64", cg_rtol=1e-8,
+                                 cg_rtol_max=1e-8)
+    mesh, loads, bcs = tet_cantilever(pt, nels)
+    one = pt.simp_optimize(mesh, loads, bcs, params)
+    emesh = make_element_mesh(mesh.n_cells, 4, devices=shard_devices(4))
+    four = pt.simp_optimize(mesh, loads, bcs, params, mesh=emesh)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(four.energy_history, one.energy_history))
+    ok = rel <= 1e-9 and four.cg_iterations_history == \
+        one.cg_iterations_history
+    phase("sharded", f"(d) element-sharded {nels} x 6 tets "
+          f"({mesh.n_cells} cells) on {emesh.size} shards vs one device, "
+          f"float64: energy max rel diff {rel:.3e} (tol 1e-9), CG "
+          f"{four.cg_iterations_history} vs {one.cg_iterations_history} "
+          f"(must be equal) {'ok' if ok else 'FAIL'}")
+    assert ok
+
+
+def run_sharded(pt, ck, mg_res):
+    """Phase 16.  Returns the kernels' launches in the main-sharded runs."""
+    t0 = time.perf_counter()
+    phase("sharded", f"{torch.cuda.device_count()} card(s) visible: shards "
+          f"on {shard_devices(8)}")
+    seen = set()
+    with recorded_shard_shapes(seen):
+        # (b) sharded against unsharded, both on the card; a coarse level
+        # distributed at 24x12x12 (coarsest 6x3x3)
+        with max_coarse_dofs(500):
+            step = pt.OptimizationParameters(
+                E0=1.0, Emin=1e-9, nu=0.3, p=3.0, volume_fraction=0.3,
+                filter_radius=1.5, dtype="float64", cg_rtol=1e-10,
+                preconditioner="multigrid", mg_smooth_iters=(1, 2))
+            sharded_vs_unsharded(pt, (24, 12, 12), torch.float64,
+                                 [(4, 1, 1), (2, 2, 1), (2, 2, 2)], 1e-12,
+                                 1e-10, step=step)
+        # float32 M(r): 5e-5, about 3x the 1.75e-5 read on an H100, not
+        # 1e-5.  The two hierarchies are the same math (float64 below:
+        # 1e-10), but the float32 stencils of levels 2-3 differ by ~1e-6 and
+        # the coarsest float32 Cholesky amplifies that
+        # (scripts/sharded_mg_drift.py prints the split)
+        sharded_vs_unsharded(pt, (128, 128, 128), torch.float32,
+                             [(4, 1, 1)], 1e-5, 5e-5)
+        sharded_vs_unsharded(pt, (128, 128, 128), torch.float64,
+                             [(4, 1, 1)], 1e-12, 1e-10)
+        # a one-cell-thick shard: 8x4x4 over (8, 1, 1)
+        sharded_vs_unsharded(pt, (8, 4, 4), torch.float64, [(8, 1, 1)],
+                             1e-12, 1e-10)
+        launches = run_main_sharded(pt, ck, mg_res)
+    check_shard_kernels(pt, ck, seen)
+    run_sharded_twins(pt, ck)
+    phase("sharded", f"phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 MG_RANGES = [("mg:setup", "im2col and setup"),
              ("mg:dense_solve", "dense solve"),
              ("mg:transfer", "transfers"),
@@ -1568,6 +1886,7 @@ def main() -> int:
                         help="where --trace writes its chrome trace "
                              "(default: traces/)")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1603,17 +1922,20 @@ def main() -> int:
         launches_lame = run_main_lame(pt, ck, res_mg)
         run_continuation(pt, ck, res_mg)
         check_io(pt, ck, grid_mg, res_mg)
-        del res_mg
         check_unstructured_ops(pt, ck)
         launches_un = run_main_unstructured(pt, ck)
         run_e2e_unstructured(pt, ck)
+        launches_sh = run_sharded(pt, ck, res_mg)
         kernels = [{
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_lame": launches_lame[name],
-            "launches_unstructured": launches_un[name], **timing[name],
+            "launches_unstructured": launches_un[name],
+            "launches_sharded": launches_sh[name], **timing[name],
         } for name in ("voxel_matvec", "voxel_energies")]
         print(json.dumps({"kernels": kernels}), flush=True)
+        phase("total", f"chip_smoke.py took "
+              f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,8 +6,10 @@ meshes, run on tensors on a CUDA device unless the caller asks for the CPU
 energies run as hand-written CUDA kernels for sm_90a (ops/cuda_kernels.py);
 on the CPU their plain PyTorch versions run.  The unstructured path
 (mesh.py, ops/amg.py, opt/optimize_unstructured.py) is library tensor ops
-on both, as the reference runs it outside any hand kernel.  The package imports torch, numpy and scipy, never jax: the JAX
-package stays the reference that the tests hold the port against.
+on both, as the reference runs it outside any hand kernel.  Both run over
+a device mesh too (`simp_optimize(mesh=...)`, parallel/).  The package
+imports torch, numpy and scipy, never jax: the JAX package stays the
+reference that the tests hold the port against.
 
 Module names follow easysimp_tpu, so each port has its counterpart there.
 """

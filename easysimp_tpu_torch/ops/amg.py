@@ -525,18 +525,23 @@ class MultilevelAMG:
     def _assemble_level1(self, scale):
         """A_1 block-sparse: (n_pairs1, 6, 6) = sum_e E_e P_a^T ke_e P_b,
         chunked over elements."""
-        ke = self.op.ke
+        return self._level1_part(self.op.ke, scale, self.Pn, self.node_conn,
+                                 self.elem_pair_idx, self.chunk_slices)
+
+    def _level1_part(self, ke, scale, Pn, node_conn, pair_idx, chunks):
+        """`_assemble_level1` over the elements of the given element-indexed
+        inputs (all of them, or one shard's), on their device."""
         nn = self.nn
         acc = torch.zeros((self.pair_rows[0].shape[0], 6, 6),
-                          dtype=self.dtype, device=self.device)
-        for s, e in self.chunk_slices:
+                          dtype=self.dtype, device=ke.device)
+        for s, e in chunks:
             c = e - s
-            pe = self.Pn[self.node_conn[s:e]]             # (c, nn, 3, 6)
+            pe = Pn[node_conn[s:e]]                       # (c, nn, 3, 6)
             w = scale[s:e].to(self.dtype)
             keb = (ke[s:e] * w[:, None, None]).reshape(c, nn, 3, nn, 3)
             half = torch.einsum("eacbd,ebdj->eacbj", keb, pe)
             g = torch.einsum("eaci,eacbj->eabij", pe, half)
-            acc.index_add_(0, self.elem_pair_idx[s:e].reshape(-1),
+            acc.index_add_(0, pair_idx[s:e].reshape(-1),
                            g.reshape(-1, 6, 6))
         return acc
 
@@ -575,20 +580,27 @@ class MultilevelAMG:
     def _assemble_node_blocks(self, scale, free_mask):
         """Masked fine operator in node-node block-sparse form:
         (n_nodepairs, 3, 3), chunk-assembled from the element ke."""
-        sc = scale.to(self.dtype)
-        ke = self.op.ke
-        nn = self.nn
-        acc = torch.zeros((self.nodepair_rows.shape[0], 3, 3),
-                          dtype=self.dtype, device=self.device)
-        for s, e in self.chunk_slices:
-            c = e - s
-            keb = (ke[s:e] * sc[s:e, None, None]).reshape(c, nn, 3, nn, 3)
-            g = keb.permute(0, 1, 3, 2, 4)                # (c, nn, nn, 3, 3)
-            acc.index_add_(0, self.elem_nodepair_idx[s:e].reshape(-1),
-                           g.reshape(-1, 3, 3))
+        acc = self._node_blocks_part(self.op.ke, scale,
+                                     self.elem_nodepair_idx,
+                                     self.chunk_slices)
         m = free_mask.reshape(self.n_nodes, 3).to(acc.dtype)
         return (acc * m[self.nodepair_rows][:, :, None]
                 * m[self.nodepair_cols][:, None, :])
+
+    def _node_blocks_part(self, ke, scale, nodepair_idx, chunks):
+        """The unmasked node-node blocks over the elements of the given
+        element-indexed inputs, on their device."""
+        sc = scale.to(self.dtype)
+        nn = self.nn
+        acc = torch.zeros((self.nodepair_rows.shape[0], 3, 3),
+                          dtype=self.dtype, device=ke.device)
+        for s, e in chunks:
+            c = e - s
+            keb = (ke[s:e] * sc[s:e, None, None]).reshape(c, nn, 3, nn, 3)
+            g = keb.permute(0, 1, 3, 2, 4)                # (c, nn, nn, 3, 3)
+            acc.index_add_(0, nodepair_idx[s:e].reshape(-1),
+                           g.reshape(-1, 3, 3))
+        return acc
 
     # Power iterations for the prolongator damping omega = 4/3 / lam.
     # Unlike the Chebyshev interval (where an under-read DIVERGES), the

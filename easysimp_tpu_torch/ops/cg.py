@@ -3,6 +3,11 @@
 Port of easysimp_tpu/ops/cg.py.  The loop runs in Python and checks the
 residual norm on the host once per iteration; the stopping rule and the
 order of updates are the reference's, so the iteration count is too.
+
+The fields may be tensors or sharded fields (parallel/sharding.py): the
+inner products go through `_vdot` and the deflation's Gram products through
+`_gram`, which take a sharded field's own global reductions (per-shard
+partials added in shard order); every other operation is elementwise.
 """
 
 from __future__ import annotations
@@ -19,9 +24,9 @@ def recycle_init(k, u, dtype=None):
     """(k, *u.shape) ring buffer seeded with the current warm start in
     slot 0, zeros elsewhere (rank deficiency is handled by the ridge in
     `cg_solve`).  dtype: optional narrow storage dtype for the ring."""
-    H = u.new_zeros((k, *u.shape), dtype=dtype or u.dtype)
-    H[0] = u
-    return H
+    dtype = dtype or u.dtype
+    zero = torch.zeros_like(u, dtype=dtype)
+    return torch.stack([u.to(dtype)] + [zero] * (k - 1))
 
 
 def recycle_push(H, u_new):
@@ -46,7 +51,20 @@ class CGResult(NamedTuple):
 
 
 def _vdot(a, b):
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    """<a, b> over the whole field (a sharded field's global dot)."""
+    if isinstance(a, torch.Tensor):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+    return a.vdot(b)
+
+
+def _gram(W, V):
+    """(m, n) matrix of <W_i, V_j> for stacked fields W (m, ...) and
+    V (n, ...); a sharded field adds its per-shard products in shard
+    order."""
+    m, n = W.shape[0], V.shape[0]
+    if isinstance(W, torch.Tensor):
+        return W.reshape(m, -1) @ V.reshape(n, -1).T
+    return W.gram(V)
 
 
 def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
@@ -78,10 +96,8 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
     if deflate is not None and deflate.shape[0] > 0:
         m = deflate.shape[0]
         AW = torch.stack([A(deflate[i]) for i in range(m)])
-        Wf = deflate.reshape(m, -1)
-        AWf = AW.reshape(m, -1)
-        G = Wf @ AWf.T
-        g = Wf @ r0.reshape(-1)
+        G = _gram(deflate, AW)
+        g = _gram(deflate, r0[None])[:, 0]
         eps = 10.0 * torch.finfo(G.dtype).eps \
             * torch.diagonal(G).abs().max() + 1e-30
         eye = torch.eye(m, dtype=G.dtype, device=G.device)

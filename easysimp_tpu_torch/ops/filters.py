@@ -28,6 +28,8 @@ device-side filter is a gather and a weighted row reduction:
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -168,32 +170,50 @@ class UnstructuredFilter:
         # sum_j H_ij and sum_j H_ij V_j, both including only real neighbors
         self.weight_sum = self.weights.sum(dim=1)
         self.wv_sum = (self.weights * self.volumes[self.neighbors]).sum(dim=1)
+        # the rows this filter computes (all of them; see `row_block`) and
+        # the whole-design fields its neighbour indices read
+        self.rows = slice(None)
+        self.all_volumes, self.all_wv_sum = self.volumes, self.wv_sum
         print_data(
             f"FilterCache created: {n} cells, r={self.filter_radius:.4f}, "
             f"avg_neighbors={counts.mean():.1f}"
         )
 
+    def row_block(self, lo, hi, device):
+        """The filter of rows lo:hi on `device`: its applies read the whole
+        design and return those rows (one shard of an element split)."""
+        blk = copy.copy(self)
+        blk.device = torch.device(device)
+        blk.rows = slice(lo, hi)
+        for name in ("neighbors", "weights", "volumes", "weight_sum",
+                     "wv_sum"):
+            setattr(blk, name, getattr(self, name)[lo:hi].to(device))
+        blk.all_volumes = self.all_volumes.to(device)
+        blk.all_wv_sum = self.all_wv_sum.to(device)
+        return blk
+
     def sensitivity_filter(self, design_rho, sens):
         rho_j = design_rho[self.neighbors]
         s_j = sens[self.neighbors]
-        v_j = self.volumes[self.neighbors]
+        v_j = self.all_volumes[self.neighbors]
         num = (self.weights * rho_j * s_j / v_j).sum(dim=1)
-        rho_safe = torch.clamp(design_rho, min=1e-3)
+        rho_safe = torch.clamp(design_rho[self.rows], min=1e-3)
         den = rho_safe / self.volumes * self.weight_sum
-        return torch.where(self.weight_sum > 1e-12, num / den, sens)
+        return torch.where(self.weight_sum > 1e-12, num / den,
+                           sens[self.rows])
 
     def density_filter(self, design_rho):
         rho_j = design_rho[self.neighbors]
-        v_j = self.volumes[self.neighbors]
+        v_j = self.all_volumes[self.neighbors]
         num = (self.weights * v_j * rho_j).sum(dim=1)
         return torch.where(self.wv_sum > 1e-12, num / self.wv_sum,
-                           design_rho)
+                           design_rho[self.rows])
 
     def chain_rule(self, sens_physical):
         # out_e = V_e * sum_{i in nb(e)} H_ei * s_i / (sum_j H_ij V_j)
         # (H symmetric; neighbor relation symmetric).
-        ratio = torch.where(self.wv_sum > 1e-12,
-                            sens_physical / self.wv_sum,
+        ratio = torch.where(self.all_wv_sum > 1e-12,
+                            sens_physical / self.all_wv_sum,
                             torch.zeros_like(sens_physical))
         return self.volumes * (self.weights
                                * ratio[self.neighbors]).sum(dim=1)

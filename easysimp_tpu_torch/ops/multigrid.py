@@ -316,10 +316,29 @@ class MultigridPreconditioner:
 
     def _coarsen_fields(self, scale, free_mask):
         scales, masks = [scale], [free_mask]
-        for _ in range(1, self.n_levels):
+        for lvl in range(1, self.n_levels):
             scales.append(coarsen_cells(scales[-1], self.coarsen))
-            masks.append(coarsen_mask(masks[-1]))
+            masks.append(self._coarsen_mask(lvl, masks[-1]))
         return scales, masks
+
+    # The level builds below are methods so that the sharded hierarchy
+    # (parallel/sharded_multigrid.py) can run them on each shard's block.
+    def _coarsen_mask(self, lvl, mask):
+        """The level-`lvl` mask from the level-(lvl-1) one."""
+        return coarsen_mask(mask)
+
+    def _stencil_from_scale(self, scale, lvl, out_dtype=None, x_chunks=1):
+        """The level-`lvl` Galerkin stencil from the fine moduli."""
+        return level_stencil_from_scale(scale, self._Gm[lvl], lvl,
+                                        out_dtype=out_dtype,
+                                        x_chunks=x_chunks)
+
+    def _stencil_diag_from_scale(self, scale, lvl):
+        return level_stencil_diag_from_scale(scale, self._Gm[lvl], lvl)
+
+    def _coarsen_stencil(self, lvl, prev):
+        """The level-`lvl` stencil as the RAP of the level-(lvl-1) one."""
+        return coarsen_stencil(prev)
 
     def _build_stencils(self, scale, masks):
         """Galerkin stencil per level >= 1 (None at level 0, which applies
@@ -337,33 +356,44 @@ class MultigridPreconditioner:
             sd_l = sd if lvl < self.n_levels - 1 else None
             if lvl in self._Gm:
                 n_coarse = (scale.shape[0] >> lvl) + 1
-                chunks = 8 if (sd_l is not None and lvl == 1
-                               and scale.numel() >= 8 * 1024 ** 2) else 1
-                stencils[lvl] = level_stencil_from_scale(
-                    scale, self._Gm[lvl], lvl, out_dtype=sd_l,
+                big = np.prod(scale.shape) >= 8 * 1024 ** 2
+                chunks = 8 if (sd_l is not None and lvl == 1 and big) else 1
+                stencils[lvl] = self._stencil_from_scale(
+                    scale, lvl, out_dtype=sd_l,
                     x_chunks=min(chunks, n_coarse))
                 if sd_l is not None:
-                    fp_diags[lvl] = level_stencil_diag_from_scale(
-                        scale, self._Gm[lvl], lvl)
+                    fp_diags[lvl] = self._stencil_diag_from_scale(scale, lvl)
             else:
                 prev = stencils[lvl - 1]
                 if prev.dtype != scale.dtype:
                     prev = prev.to(scale.dtype)
-                st = coarsen_stencil(prev)
+                st = self._coarsen_stencil(lvl, prev)
                 if sd_l is not None:
                     fp_diags[lvl] = stencil_diagonal(st)
                 stencils[lvl] = st if sd_l is None else st.to(sd_l)
         return stencils, fp_diags
 
-    @staticmethod
-    def _masked_stencil_apply(stencil, mask, v):
+    def _masked_stencil_apply(self, stencil, mask, v):
         """Masked action of an unfolded stencil, M C (M v).  A field in
         another dtype than the stencil's is applied in the stencil's dtype
         and the result cast back."""
         if stencil.dtype != v.dtype:
             mv = (mask * v).to(stencil.dtype)
-            return mask * apply_stencil(stencil, mv).to(v.dtype)
-        return mask * apply_stencil(stencil, mask * v)
+            return mask * self._apply_stencil(stencil, mv).to(v.dtype)
+        return mask * self._apply_stencil(stencil, mask * v)
+
+    # The cycle's grid operations are methods so that the sharded hierarchy
+    # can run them with a halo on each shard's block.
+    def _apply_stencil(self, stencil, u):
+        return apply_stencil(stencil, u)
+
+    def _restrict(self, lvl, f):
+        """Level-`lvl` node field -> level lvl + 1."""
+        return restrict(f)
+
+    def _prolong(self, lvl, xc):
+        """Level lvl + 1 node field -> level `lvl`."""
+        return prolong(xc)
 
     def _level_apply(self, lvl, scales, masks, stencils):
         """The level-`lvl` operator used during setup (power iteration)."""
@@ -511,13 +541,13 @@ class MultigridPreconditioner:
             return x if lp is None else x.to(lp)
 
         sd_build = self.stencil_dtype
-        st1 = level_stencil_from_scale(
-            scale, self._Gm[1], 1, out_dtype=sd_build,
+        st1 = self._stencil_from_scale(
+            scale, 1, out_dtype=sd_build,
             x_chunks=8 if (sd_build is not None
-                           and scale.numel() >= 8 * 1024 ** 2) else 1)
-        fp_diag1 = (level_stencil_diag_from_scale(scale, self._Gm[1], 1)
+                           and np.prod(scale.shape) >= 8 * 1024 ** 2) else 1)
+        fp_diag1 = (self._stencil_diag_from_scale(scale, 1)
                     if sd_build is not None else None)
-        mask1 = coarsen_mask(free_mask)
+        mask1 = self._coarsen_mask(1, free_mask)
         headroom = 1.1
         # level 0: the element operator
         diag0 = self.ops[0].diagonal(scale, free_mask)
@@ -603,13 +633,13 @@ class MultigridPreconditioner:
         iters = self._level_smooth_iters(lvl)
         x = self._smooth(lvl, state, r, None, iters)  # x0 = 0: skips 1 apply
         res = r - self._apply_level(lvl, state, x)
-        rc = state["masks"][lvl + 1] * restrict(res)
+        rc = state["masks"][lvl + 1] * self._restrict(lvl, res)
         xc = self._vcycle(lvl + 1, state, rc)
         if self.cycle == "w" and lvl + 1 < self.n_levels - 1:
             # W-cycle: a second coarse-grid visit on the updated residual
             rc2 = rc - self._apply_level(lvl + 1, state, xc)
             xc = xc + self._vcycle(lvl + 1, state, rc2)
-        x = x + mask * prolong(xc)
+        x = x + mask * self._prolong(lvl, xc)
         return self._smooth(lvl, state, r, x, iters)
 
     def _level_smooth_iters(self, lvl: int) -> int:

@@ -55,6 +55,14 @@ def _dyadic_midpoints(lo, hi, depth):
     return np.array(vals[1:n], dtype=type(lo))
 
 
+def _field_sums(x, dims):
+    """Sums over the field axes `dims` (a sharded field adds its per-shard
+    partial sums in shard order)."""
+    if isinstance(x, torch.Tensor):
+        return x.sum(dim=dims)
+    return x.field_sums(dims)
+
+
 def oc_update(densities, sensitivities, volume_sensitivities,
               target_volume_fraction, total_volume, volume_weights,
               move_limit=0.2, damping=0.5):
@@ -86,9 +94,11 @@ def oc_update(densities, sensitivities, volume_sensitivities,
     q = densities * (sensitivities.abs() / volume_sensitivities) ** damping
     lo_e = torch.clamp(densities - move_limit, min=X_MIN)
     hi_e = torch.clamp(densities + move_limit, max=1.0)
-    w = torch.broadcast_to(torch.as_tensor(volume_weights, dtype=dtype,
-                                           device=densities.device),
-                           densities.shape)
+    w = volume_weights
+    if tuple(getattr(w, "shape", ())) != tuple(densities.shape):
+        w = torch.broadcast_to(torch.as_tensor(w, dtype=dtype,
+                                               device=densities.device),
+                               densities.shape)
     bcast = (-1,) + (1,) * densities.dim()
     field_dims = tuple(range(1, densities.dim() + 1))
 
@@ -99,7 +109,7 @@ def oc_update(densities, sensitivities, volume_sensitivities,
         lt = torch.as_tensor(lams, device=densities.device).view(bcast)
         cand = torch.clamp(q[None] * lt ** (-damping), lo_e[None],
                            hi_e[None])
-        vol = (cand * w[None]).sum(dim=field_dims)
+        vol = _field_sums(cand * w[None], field_dims)
         return vol.cpu().numpy() - target_volume
 
     lo, hi = nd(LAMBDA_LO), nd(LAMBDA_HI)
@@ -136,9 +146,9 @@ def oc_update(densities, sensitivities, volume_sensitivities,
 def sensitivity_health(sensitivities):
     """Device-side reductions for the reference's health check
     (OptimalityCriteria.jl:19-40): (frac_negative, mean_abs, max_abs)."""
-    flat = sensitivities.reshape(-1)
-    abs_s = flat.abs()
-    return ((flat < 0).to(flat.dtype).mean(), abs_s.mean(), abs_s.max())
+    abs_s = sensitivities.abs()
+    return ((sensitivities < 0).to(sensitivities.dtype).mean(),
+            abs_s.mean(), abs_s.max())
 
 
 # Cap on elements transferred to the host for the median subsample.

@@ -37,6 +37,7 @@ __all__ = [
     "assemble_node_stencil",
     "fold_bc_into_stencil",
     "apply_stencil",
+    "apply_stencil_padded",
     "stencil_diagonal",
     "stencil_row_abs_sums",
     "coarsen_stencil_axis",
@@ -219,7 +220,15 @@ def apply_stencil(C, u):
     axes, no copy), multiplied against the coefficient tensor in one product
     and summed over the offset and column axes: a handful of launches and
     Python ops per apply.  The product is a transient of the size of C."""
-    up = F.pad(torch.movedim(u, -1, 0), (1, 1, 1, 1, 1, 1))
+    return apply_stencil_padded(
+        C, F.pad(torch.movedim(u, -1, 0), (1, 1, 1, 1, 1, 1)))
+
+
+def apply_stencil_padded(C, up):
+    """`apply_stencil` on a field already given with its one-node border:
+    up is (3, nnx+2, nny+2, nnz+2), component first, zero where the border
+    lies outside the grid.  A shard passes its block with the halo received
+    from its neighbours (parallel/halo.py)."""
     V = _shifted(up)[:, :, :, None]                     # [o..., 1, j, n]
     out = (C * V).sum(dim=(0, 1, 2, 4))                 # [i, n]
     return torch.movedim(out, 0, -1).contiguous()

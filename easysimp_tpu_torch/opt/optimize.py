@@ -30,6 +30,12 @@ interval and tolerance VTU exports (post/vtu.py) and a `torch.profiler`
 trace of iterations 2-4 (`profile_dir`).  The reference's split of the
 iteration into several programs is a TPU matter and has no counterpart.
 
+Under a device mesh (`mesh=`, parallel/sharding.py `make_mesh`) the same
+iteration runs on sharded fields: the operator, filter and multigrid are
+their halo-exchanging twins (parallel/), every other step is this file's
+code on fields whose elementwise ops run per shard and whose reductions are
+global.  Results, histories and checkpoints are in the global layout.
+
 Multigrid carries state across iterations (easysimp_tpu/opt/optimize.py
 :720-819): per-level power vectors, estimated cold once before the loop and
 refreshed by every setup; and the V-cycle state, rebuilt every
@@ -53,7 +59,13 @@ from ..bcs import build_free_mask
 from ..config import resolve_dtype
 from ..grids import VoxelGrid
 from ..loads import build_load_field, voxel_body_force
-from ..ops.cg import cg_solve, recycle_deflate, recycle_init, recycle_push
+from ..ops.cg import (
+    _vdot,
+    cg_solve,
+    recycle_deflate,
+    recycle_init,
+    recycle_push,
+)
 from ..ops.filters import create_filter_cache
 from ..ops.multigrid import MultigridPreconditioner
 from ..ops.oc import (
@@ -63,6 +75,8 @@ from ..ops.oc import (
     sensitivity_health,
 )
 from ..ops.operator import VoxelOperator
+from ..parallel.sharded_step import material_derivative
+from ..parallel.sharding import mesh_device
 from ..params import OptimizationParameters, OptimizationResult
 from ..stress import voxel_stresses
 from ..utils.terminal import (
@@ -138,7 +152,12 @@ def _build_preconditioner(op, params):
         def dtype(name):
             return resolve_dtype(name, op.device) if name else None
 
-        mg = MultigridPreconditioner(
+        mg_class = MultigridPreconditioner
+        if hasattr(op, "layout"):  # a HaloVoxelOperator: the sharded cycle
+            from ..parallel.sharded_multigrid import ShardedMultigrid
+
+            mg_class = ShardedMultigrid
+        mg = mg_class(
             op, levels=params.mg_levels, smooth_iters=params.mg_smooth_iters,
             cycle_dtype=dtype(params.mg_cycle_dtype),
             galerkin=params.mg_galerkin, cycle=params.mg_cycle,
@@ -203,44 +222,74 @@ class VoxelStep:
     total_volume: float
     dtype: torch.dtype
     device: torch.device
+    layout: Any = None    # parallel.sharding.GridLayout under a device mesh
+
+    def place(self, a, kind):
+        """A global array or tensor ("cell" or "node" field) as the step
+        holds it: on the device, or split over the mesh."""
+        return _place(a, kind, self.dtype, self.device, self.layout)
+
+    def gather(self, t):
+        """A field as one tensor on the (first) device."""
+        return t if isinstance(t, torch.Tensor) else self.layout.gather(t)
+
+
+def _place(a, kind, dtype, device, layout):
+    if not isinstance(a, torch.Tensor):
+        # contiguous: build_load_field returns a transposed view, and a
+        # strided right-hand side would make every CG field strided
+        a = torch.as_tensor(np.ascontiguousarray(a))
+    if layout is not None:
+        return layout.split(a.to(dtype), kind)
+    return a.to(dtype=dtype, device=device).contiguous()
 
 
 def build_voxel_step(grid, loads, boundary_conditions,
                      params: OptimizationParameters, acceleration_data=None,
-                     device="cuda") -> VoxelStep:
-    """Build the SIMP iteration for a voxel problem on `device`."""
-    device = torch.device(device)
+                     device="cuda", mesh=None) -> VoxelStep:
+    """Build the SIMP iteration for a voxel problem on `device`, or over
+    the shards of an ("x","y","z") device `mesh`."""
+    device = (torch.device(device) if mesh is None
+              else mesh_device(mesh, device, ("x", "y", "z")))
     dtype = resolve_dtype(params.dtype, device)
     elem_vol = grid.element_volume
     total_volume = grid.total_volume
 
     op = VoxelOperator(grid, E0=params.E0, Emin=params.Emin, nu=params.nu,
                        p=params.p, dtype=dtype, device=device)
-    filt = create_filter_cache(grid, params.filter_radius, dtype=dtype,
-                               device=device)
+    layout = None
+    if mesh is None:
+        filt = create_filter_cache(grid, params.filter_radius, dtype=dtype,
+                                   device=device)
+    else:
+        from ..parallel.halo import HaloVoxelOperator
+        from ..parallel.sharded_step import ShardedVoxelFilter
+        from ..parallel.sharding import GridLayout
+
+        layout = GridLayout(mesh, grid.nels)
+        op = HaloVoxelOperator(op, layout)
+        filt = ShardedVoxelFilter(grid, params.filter_radius, layout,
+                                  dtype=dtype)
     use_density_filter = params.filter_type == "density"
     precond, setup_every = _build_preconditioner(op, params)
 
-    def dev(a):
-        # contiguous: build_load_field returns a transposed view, and a
-        # strided right-hand side would make every CG field strided
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
+    def place(a, kind):
+        return _place(a, kind, dtype, device, layout)
 
-    free_mask = dev(build_free_mask(grid, boundary_conditions))
-    f_ext = dev(build_load_field(grid, loads))
+    free_mask = place(build_free_mask(grid, boundary_conditions), "node")
+    f_ext = place(build_load_field(grid, loads), "node")
     if acceleration_data is not None:
         accel_vec, base_density = acceleration_data
 
     # Volume sensitivities: geometry-only, chain-ruled ONCE for the density
     # filter (Optimization.jl:241-248).
-    vol_sens_physical = torch.full(grid.nels, elem_vol / total_volume,
-                                   dtype=dtype, device=device)
+    vol_sens_physical = place(torch.full(grid.nels, elem_vol / total_volume,
+                                         dtype=dtype), "cell")
     vol_sens = (filt.chain_rule(vol_sens_physical) if use_density_filter
                 else vol_sens_physical)
-    design0 = torch.full(grid.nels, params.volume_fraction, dtype=dtype,
-                         device=device)
-    u0 = torch.zeros((*grid.nnodes_per_axis, 3), dtype=dtype, device=device)
+    design0 = place(torch.full(grid.nels, params.volume_fraction,
+                               dtype=dtype), "cell")
+    u0 = place(torch.zeros((*grid.nnodes_per_axis, 3), dtype=dtype), "node")
 
     material_model = params.material_model
     # Equivalent-modulus field for the PRECONDITIONER under a custom
@@ -262,7 +311,9 @@ def build_voxel_step(grid, loads, boundary_conditions,
         phys = physical(design)
         f = f_ext
         if acceleration_data is not None:
-            f = f + voxel_body_force(phys, accel_vec, base_density, elem_vol)
+            force = (voxel_body_force if layout is None
+                     else op.body_force)
+            f = f + force(phys, accel_vec, base_density, elem_vol)
         f_bc = f * free_mask
         if material_model is None:
             scale = op.youngs_modulus(phys)
@@ -280,8 +331,7 @@ def build_voxel_step(grid, loads, boundary_conditions,
                        maxiter=params.cg_maxiter,
                        deflate=recycle_deflate(free_mask, recycle))
         # 0.5 u^T K u without an extra matvec: K u = f - r at the CG exit.
-        energy = 0.5 * (torch.dot(sol.u.reshape(-1), f_bc.reshape(-1))
-                        - sol.u_dot_r)
+        energy = 0.5 * (_vdot(sol.u, f_bc) - sol.u_dot_r)
         volume = phys.sum() * elem_vol
         return phys, sol, energy, volume
 
@@ -293,8 +343,7 @@ def build_voxel_step(grid, loads, boundary_conditions,
         else:
             # the exact material derivative by one elementwise jvp: dc/drho
             # = -(lam'(rho) u_e^T ke_lam u_e + mu'(rho) u_e^T ke_mu u_e)
-            _, (dlam, dmu) = torch.func.jvp(material_model, (phys,),
-                                            (torch.ones_like(phys),))
+            dlam, dmu = material_derivative(material_model, phys)
             wl, wm = op.element_energies_lame(sol.u)
             sens = -(dlam * wl + dmu * wm)
         if use_density_filter:
@@ -352,11 +401,14 @@ def build_voxel_step(grid, loads, boundary_conditions,
         step=step, metrics=metrics, solve=solve,
         element_energy=element_energy, design0=design0, u0=u0,
         vol_sens=vol_sens, elem_vol=elem_vol, total_volume=total_volume,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, layout=layout)
 
 
 def _to_numpy(t):
-    """A tensor as float64 numpy on the host."""
+    """A tensor (or a sharded field, gathered) as float64 numpy on the
+    host."""
+    if not isinstance(t, torch.Tensor):
+        t = t.gather()
     return t.cpu().double().numpy()
 
 
@@ -374,7 +426,12 @@ def simp_optimize(grid, loads, boundary_conditions,
       params: OptimizationParameters.
       acceleration_data: optional (acceleration_vector, base_density) for
         variable-density body forces (Optimization.jl:195-198, 301-311).
-      mesh: multi-device runs are not ported yet; must be None.
+      mesh: optional device mesh.  Voxel grids take an ("x","y","z") mesh
+        (parallel.sharding.make_mesh): the grid is split over its shards,
+        each on its own device (a device may repeat), with explicit halo
+        exchanges.  An UnstructuredMesh takes a 1-axis ("e",) mesh
+        (make_element_mesh): its elements are split.  The device of the
+        mesh must agree with `device`.
       resume_from: optional checkpoint path (opt/checkpoint.py, the JAX
         package's format): restores design, displacements, iteration,
         histories, power vectors and recycle ring, and continues.
@@ -383,15 +440,15 @@ def simp_optimize(grid, loads, boundary_conditions,
         CUDA device the default raises, and the CPU runs only when asked
         for.
     """
+    if mesh is not None:  # checked up front, as the reference does
+        mesh_device(mesh, device, ("x", "y", "z")
+                    if isinstance(grid, VoxelGrid) else ("e",))
     if not isinstance(grid, VoxelGrid):
         from .optimize_unstructured import simp_optimize_unstructured
 
         return simp_optimize_unstructured(
             grid, loads, boundary_conditions, params, acceleration_data,
             resume_from=resume_from, device_mesh=mesh, device=device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: mesh (multi-device; see ROADMAP.md)")
     if params.cg_forcing not in ("fixed", "adaptive"):
         raise ValueError(f"cg_forcing must be 'fixed' or 'adaptive', "
                          f"got {params.cg_forcing!r}")
@@ -408,7 +465,7 @@ def simp_optimize(grid, loads, boundary_conditions,
     print_data(f"Total mesh volume: {grid.total_volume}")
 
     vs = build_voxel_step(grid, loads, boundary_conditions, params,
-                          acceleration_data, device=device)
+                          acceleration_data, device=device, mesh=mesh)
     total_volume, elem_vol = vs.total_volume, vs.elem_vol
     design, u = vs.design0, vs.u0
     # Coarse-to-fine continuation: replace the uniform initial design with
@@ -421,6 +478,7 @@ def simp_optimize(grid, loads, boundary_conditions,
         design, u = continuation_init(grid, loads, boundary_conditions,
                                       params, acceleration_data,
                                       device=vs.device)
+        design, u = vs.place(design, "cell"), vs.place(u, "node")
 
     # Subspace-recycled CG: ring buffer of the last k solutions, whose
     # deltas deflate the warm-start residual (ops/cg.py).
@@ -452,11 +510,9 @@ def simp_optimize(grid, loads, boundary_conditions,
     if resume_from:
         from .checkpoint import load_checkpoint, restore_triggered
 
-        def dev(a):
-            return torch.as_tensor(a, dtype=vs.dtype, device=vs.device)
-
         saved = load_checkpoint(resume_from)
-        design, u = dev(saved["design"]), dev(saved["u"])
+        design = vs.place(saved["design"], "cell")
+        u = vs.place(saved["u"], "node")
         start_iteration = saved["iteration"] + 1
         energy_history = saved["energy_history"]
         volume_history = saved["volume_history"]
@@ -465,13 +521,20 @@ def simp_optimize(grid, loads, boundary_conditions,
         checkpoint_triggered = restore_triggered(
             saved["checkpoint_triggered"], params.tolerance_checkpoints)
         saved_pvecs = saved["pvecs"]
-        shapes = [v.shape for v in vs.precond.init_power_vectors()]
-        if shapes and [v.shape for v in saved_pvecs] == shapes:
-            pvecs = tuple(dev(v) for v in saved_pvecs)
+        starts = vs.precond.init_power_vectors()
+        if starts and [tuple(v.shape) for v in saved_pvecs] == \
+                [tuple(v.shape) for v in starts]:
+            # each level as its start vector lies (sharded or on the
+            # first device)
+            pvecs = tuple(
+                vs.place(v, "node") if not isinstance(s, torch.Tensor)
+                else torch.as_tensor(v, dtype=vs.dtype, device=vs.device)
+                for v, s in zip(saved_pvecs, starts))
         if rhist is not None:
             saved_rec = saved["recycle"]
             if saved_rec is not None and saved_rec.shape[0] == recycle_k:
-                rhist = dev(saved_rec).to(recycle_dtype or vs.dtype)
+                rhist = vs.place(saved_rec, "node").to(
+                    recycle_dtype or vs.dtype)
             else:
                 # the checkpoint predates recycling (or has another k): seed
                 # the ring with the restored warm start
@@ -569,7 +632,7 @@ def simp_optimize(grid, loads, boundary_conditions,
         # :19-40); the median comes from a host-side subsample.
         if not warned_health and (it == start_iteration or it % 10 == 0):
             warned_health = _warn_sensitivity_health(
-                float(frac_neg), float(max_abs), out.fsens)
+                float(frac_neg), float(max_abs), vs.gather(out.fsens))
 
         # OC bisection non-convergence warning, only when all 200 bisection
         # iterations exhaust without meeting the tolerance
@@ -624,6 +687,8 @@ def simp_optimize(grid, loads, boundary_conditions,
     phys, u, final_energy = vs.solve(design, pvecs)
     final_energy = float(final_energy)
     final_volume = float(phys.sum()) * elem_vol
+    energies = vs.gather(vs.element_energy(phys, u))
+    phys, u = vs.gather(phys), vs.gather(u)
 
     stresses = voxel_stresses(grid, u, phys, params.E0, params.Emin,
                               params.nu, params.p,
@@ -633,7 +698,7 @@ def simp_optimize(grid, loads, boundary_conditions,
         f"at cell {stresses.max_vm_cell}"
     )
     # 0.5 * integral(sigma:eps) per cell == 0.5 * u_e^T K_e u_e
-    elem_energies = grid.cells_flat(_to_numpy(vs.element_energy(phys, u)))
+    elem_energies = grid.cells_flat(_to_numpy(energies))
 
     if logger is not None:
         logger.write_summary(final_energy, final_volume, converged)
@@ -693,6 +758,8 @@ def _export_intermediate(vs, params, phys, u, energy, volume, iteration,
     from ..post.vtu import create_results_data, export_main_results
 
     grid = vs.grid
+    energies = vs.gather(vs.element_energy(phys, u))
+    phys, u = vs.gather(phys), vs.gather(u)
     stresses = voxel_stresses(grid, u, phys, params.E0, params.Emin,
                               params.nu, params.p,
                               material_model=params.material_model)
@@ -708,8 +775,7 @@ def _export_intermediate(vs, params, phys, u, energy, volume, iteration,
         energy_history=list(energy_history),
         volume_history=list(volume_history),
         densities_3d=phys_np,
-        element_energies=grid.cells_flat(
-            _to_numpy(vs.element_energy(phys, u))),
+        element_energies=grid.cells_flat(_to_numpy(energies)),
     )
     data = create_results_data(grid, interim)
     export_main_results(data, os.path.join(params.export_path, name))

@@ -10,10 +10,13 @@ RBM-aggregation AMG (ops/amg.py; the algebraic stand-in for the voxel path's
 geometric multigrid).  Every tensor lives on `device`; PyTorch runs eagerly,
 so the iteration is one Python function.
 
-The reference's split of the iteration into three programs and its
-element-sharded `device_mesh` branch have no counterpart here: the first is
-a matter of its compile transport, the second goes with multi-device runs,
-which are not ported yet.
+Under a 1-axis ("e",) device mesh (`device_mesh=`, parallel/sharding.py
+`make_element_mesh`) the elements are split over the shards: the operator,
+filter rows and AMG assembly inputs are the element-sharded twins of
+parallel/element_step.py, element fields are sharded fields and dof vectors
+stay on the mesh's first device.  The reference's split of the iteration
+into three programs has no counterpart: it is a matter of its compile
+transport.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..ops.filters import UnstructuredFilter
 from ..ops.oc import MAX_BISECTION, oc_update, sensitivity_health
 from ..ops.operator import UnstructuredOperator
 from ..params import OptimizationParameters, OptimizationResult
+from ..parallel.sharded_step import material_derivative
 from ..stress import unstructured_stresses
 from ..utils.terminal import (
     print_data,
@@ -76,13 +80,33 @@ class UnstructuredStep:
     use_density_filter: bool
     shape_integrals: Any
     build_seconds: dict
+    layout: Any = None    # parallel.sharding.ElementLayout under a mesh
+
+    def place(self, a):
+        """A global element array as the step holds it (split over the mesh
+        under one)."""
+        t = torch.as_tensor(np.asarray(a), dtype=self.dtype)
+        return (t.to(self.device) if self.layout is None
+                else self.layout.split(t))
+
+    def gather(self, t):
+        """An element field as one tensor on the (first) device."""
+        return t if isinstance(t, torch.Tensor) else self.layout.gather(t)
 
 
 def build_unstructured_step(mesh, loads, boundary_conditions,
                             params: OptimizationParameters,
                             acceleration_data=None,
-                            device="cuda") -> UnstructuredStep:
-    """Construct the SIMP iteration for an imported mesh on `device`."""
+                            device="cuda",
+                            device_mesh=None) -> UnstructuredStep:
+    """Construct the SIMP iteration for an imported mesh on `device`, or
+    with its elements split over an ("e",) `device_mesh`."""
+    layout = None
+    if device_mesh is not None:
+        from ..parallel.sharding import ElementLayout, mesh_device
+
+        device = mesh_device(device_mesh, device, ("e",))
+        layout = ElementLayout(device_mesh, mesh.n_cells)
     device = torch.device(device)
     dtype = resolve_dtype(params.dtype, device)
 
@@ -95,10 +119,22 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
     t0 = time.perf_counter()
     coords = mesh.node_coords[mesh.connectivity]       # (E, nn, 3)
     ke_unit, vols = element_stiffness_batch_np(coords, E=1.0, nu=params.nu)
-    op = UnstructuredOperator(
-        ke_unit, mesh.connectivity, mesh.n_nodes, E0=params.E0,
-        Emin=params.Emin, nu=params.nu, p=params.p, dtype=dtype,
-        device=device)
+    if layout is None:
+        op = UnstructuredOperator(
+            ke_unit, mesh.connectivity, mesh.n_nodes, E0=params.E0,
+            Emin=params.Emin, nu=params.nu, p=params.p, dtype=dtype,
+            device=device)
+    else:
+        from ..parallel.element_step import (
+            ElementShardedAMG,
+            ElementShardedFilter,
+            ElementShardedOperator,
+        )
+
+        op = ElementShardedOperator(
+            ke_unit, mesh.connectivity, mesh.n_nodes, E0=params.E0,
+            Emin=params.Emin, nu=params.nu, p=params.p, layout=layout,
+            dtype=dtype)
     material_model = params.material_model
     # Equivalent-modulus field for the PRECONDITIONER under a custom
     # material: E_eff = mu(rho) / mu_unit, exact when nu is density-
@@ -114,18 +150,24 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    def elem(a):
+        """An element array on the device, or split over the mesh."""
+        return dev(a) if layout is None else layout.split(dev(a))
+
     def precond_scale(phys):
         if material_model is None:
             return op.youngs_modulus(phys)
         return material_model(phys)[1] / mu_unit
 
-    element_volumes = dev(vols)
+    element_volumes = elem(vols)
     total_volume = float(vols.sum())
 
     t0 = time.perf_counter()
     radius = params.filter_radius * mesh.characteristic_element_size
     filt = UnstructuredFilter(mesh.cell_centers, vols, radius, dtype=dtype,
                               device=device)
+    if layout is not None:
+        filt = ElementShardedFilter(filt, layout)
     build_seconds["neighbor_search"] = time.perf_counter() - t0
     use_density_filter = params.filter_type == "density"
 
@@ -136,15 +178,14 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
     shape_integrals = None
     if acceleration_data is not None:
         accel_vec, base_density = acceleration_data
-        shape_integrals = dev(shape_integrals_batch_np(coords))
+        shape_integrals = elem(shape_integrals_batch_np(coords))
         accel = dev(np.asarray(accel_vec, dtype=np.float64))
 
     vol_sens_physical = element_volumes / total_volume
     vol_sens = (filt.chain_rule(vol_sens_physical) if use_density_filter
                 else vol_sens_physical)
 
-    design0 = torch.full((mesh.n_cells,), params.volume_fraction,
-                         dtype=dtype, device=device)
+    design0 = elem(np.full(mesh.n_cells, params.volume_fraction))
     u0 = torch.zeros(mesh.n_dofs, dtype=dtype, device=device)
 
     def body_force(phys):
@@ -166,10 +207,12 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
     if use_amg:
         from ..ops.amg import MultilevelAMG
 
-        amg = MultilevelAMG(
-            op, mesh, free_mask_np,
-            max_coarse_dofs=params.amg_max_coarse_dofs,
-            smooth_prolongator=params.amg_smooth_prolongator)
+        amg_kw = dict(max_coarse_dofs=params.amg_max_coarse_dofs,
+                      smooth_prolongator=params.amg_smooth_prolongator)
+        if layout is None:
+            amg = MultilevelAMG(op, mesh, free_mask_np, **amg_kw)
+        else:
+            amg = ElementShardedAMG(op, ke_unit, mesh, free_mask_np, **amg_kw)
         build_seconds.update(
             {f"amg_{k}": v for k, v in amg.build_seconds.items()})
 
@@ -218,8 +261,7 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
         else:
             # exact material derivative via one elementwise jvp: dc/drho =
             # -(lam'(rho) u_e^T ke_lam u_e + mu'(rho) u_e^T ke_mu u_e)
-            _, (dlam, dmu) = torch.func.jvp(material_model, (phys,),
-                                            (torch.ones_like(phys),))
+            dlam, dmu = material_derivative(material_model, phys)
             wl, wm = op.element_energies_lame(u)
             sens = -(dlam * wl + dmu * wm)
         if use_density_filter:
@@ -267,11 +309,15 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
         element_energy=element_energy, design0=design0, u0=u0,
         element_volumes=element_volumes, total_volume=total_volume,
         dtype=dtype, device=device, use_density_filter=use_density_filter,
-        shape_integrals=shape_integrals, build_seconds=build_seconds)
+        shape_integrals=shape_integrals, build_seconds=build_seconds,
+        layout=layout)
 
 
 def _to_numpy(t):
-    """A tensor as float64 numpy on the host."""
+    """A tensor (or a sharded field, gathered) as float64 numpy on the
+    host."""
+    if not isinstance(t, torch.Tensor):
+        t = t.gather()
     return t.cpu().double().numpy()
 
 
@@ -282,10 +328,8 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
                                device_mesh=None, *,
                                device="cuda") -> OptimizationResult:
     """SIMP topology optimization on an UnstructuredMesh, on `device`
-    ("cuda[:N]", the default, or "cpu" when asked for)."""
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: device_mesh (multi-device; see ROADMAP.md)")
+    ("cuda[:N]", the default, or "cpu" when asked for), or with its elements
+    split over an ("e",) `device_mesh` whose devices agree with `device`."""
     if params.cg_forcing not in ("fixed", "adaptive"):
         raise ValueError(f"cg_forcing must be 'fixed' or 'adaptive', "
                          f"got {params.cg_forcing!r}")
@@ -301,7 +345,8 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
     print_data(f"Total mesh volume: {mesh.total_volume}")
 
     us = build_unstructured_step(mesh, loads, boundary_conditions, params,
-                                 acceleration_data, device=device)
+                                 acceleration_data, device=device,
+                                 device_mesh=device_mesh)
     total_volume = us.total_volume
 
     def dev(a):
@@ -334,7 +379,7 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
         from .checkpoint import load_checkpoint, restore_triggered
 
         state = load_checkpoint(resume_from)
-        design, u = dev(state["design"]), dev(state["u"])
+        design, u = us.place(state["design"]), dev(state["u"])
         start_iteration = state["iteration"] + 1
         energy_history = state["energy_history"]
         volume_history = state["volume_history"]
@@ -404,7 +449,7 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
             from .optimize import _warn_sensitivity_health
 
             warned_health = _warn_sensitivity_health(
-                float(frac_neg), float(max_abs), fsens)
+                float(frac_neg), float(max_abs), us.gather(fsens))
 
         # OC bisection non-convergence warning, gated like the reference:
         # only when 200 iterations exhaust (OptimalityCriteria.jl:139-142)

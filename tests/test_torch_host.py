@@ -40,6 +40,11 @@ def test_import_without_jax():
         import easysimp_tpu_torch.opt.optimize_unstructured
         import easysimp_tpu_torch.models.gripper
         import easysimp_tpu_torch.models.wheel
+        import easysimp_tpu_torch.parallel
+        import easysimp_tpu_torch.parallel.sharded_multigrid
+        import easysimp_tpu_torch.parallel.sharded_step
+        import easysimp_tpu_torch.parallel.element_step
+        import easysimp_tpu_torch.dryrun
         bad = [m for m in ("triton", "torch.utils.cpp_extension",
                            "easysimp_tpu") if m in sys.modules]
         assert not bad, bad

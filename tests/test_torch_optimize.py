@@ -213,14 +213,21 @@ def test_auto_without_levels_is_jacobi(capsys):
 
 @pytest.mark.parametrize("what", ["mesh", "unstructured"])
 def test_unported_options_raise(what):
-    """What the port still refuses on the JAX package's signature: a device
-    mesh (multi-device runs), on a voxel grid and on an unstructured mesh
-    (the mesh itself is taken since the unstructured path was ported)."""
+    """What the port refuses on the JAX package's signature: a device mesh
+    whose axes do not fit the input kind (("x","y","z") for a voxel grid,
+    ("e",) for an unstructured mesh), with the reference's messages."""
+    from easysimp_tpu_torch.parallel.sharding import (make_element_mesh,
+                                                      make_mesh)
+
     grid, loads, bcs = _cantilever(pt, (4, 2, 2))
     params = pt.OptimizationParameters(max_iterations=1, dtype="float64",
                                        preconditioner="jacobi")
+    wrong = make_element_mesh(16, devices=["cpu"] * 2)
+    match = "'x','y','z'"
     if what == "unstructured":
         grid = pt.tet_mesh_from_grid(grid)
-    with pytest.raises(NotImplementedError, match="not ported yet: "):
-        pt.simp_optimize(grid, loads, bcs, params, device="cpu",
-                         mesh=object())
+        wrong, match = make_mesh(2, devices=["cpu"] * 2), "'e',"
+    for mesh in (wrong, object()):
+        with pytest.raises(ValueError, match=match):
+            pt.simp_optimize(grid, loads, bcs, params, device="cpu",
+                             mesh=mesh)

@@ -217,8 +217,8 @@ def test_checkpoint_resume_and_exports(tmp_path):
 
 def test_entry_points_and_refusals():
     """`simp_optimize` dispatches a mesh to the unstructured loop; the
-    device defaults to CUDA and raises without one; multi-device arguments
-    and the FD verifier refuse as the ROADMAP says; a reference mesh carried
+    device defaults to CUDA and raises without one; a device mesh of the
+    wrong axes and the FD verifier refuse; a reference mesh carried
     across by attribute runs."""
     mesh, loads, bcs = _problem(pt, (2, 2, 2))
     params = pt.OptimizationParameters(max_iterations=1, dtype="float64",
@@ -226,9 +226,12 @@ def test_entry_points_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             pt.simp_optimize(mesh, loads, bcs, params)
-    with pytest.raises(NotImplementedError, match="not ported yet: device_mesh"):
-        pt.simp_optimize_unstructured(mesh, loads, bcs, params,
-                                      device_mesh=object(), device="cpu")
+    from easysimp_tpu_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(ValueError, match="'e',"):
+        pt.simp_optimize_unstructured(
+            mesh, loads, bcs, params, device="cpu",
+            device_mesh=make_mesh(2, devices=["cpu"] * 2))
     with pytest.raises(NotImplementedError, match="voxel grids"):
         pt.verify_sensitivities(mesh, loads, bcs, params, device="cpu")
     with pytest.raises(ValueError, match="cg_forcing"):
