@@ -124,6 +124,22 @@ Phases, each of which asserts and prints a line:
               every split) and MULTICHIP_r05.json (rtol 1e-4), and the
               element-sharded unstructured path on 16^3 x 6 tets over 4
               shards against one device (float64, rtol 1e-9, equal CG).
+ 17. bench:   the port's bench (easysimp_tpu_torch/bench.py) at its
+              defaults, in this process: the 128^3 float32 trajectory with
+              a 40-iteration continuation prelude at 64^3, the first fine
+              iteration, an early window of 10, timed advance chunks to
+              iteration 50 and a late window of 10; its JSON line (metric
+              simp_iterations_per_sec_128x128x128, it/s finite and > 0, CG
+              < 500, `hardware` the card's nvidia-smi line), the final
+              design's volume fraction within 1e-4 of 0.3, both kernels
+              launched (the matvec in float32 and bfloat16), and the
+              energies of fine iterations 1, 11 and 60 within 1e-2 of the
+              JAX package's trajectory on a TPU (BENCH_r05.json); the phase
+              breakdown at the final design; then BENCH_UNSTRUCTURED=24
+              (BENCH_ITERS=3, BENCH_LATE_START=8: its line, finite energies,
+              CG < 2000) and BENCH_SHARDED=4 at 64^3 (halo copies and global
+              reductions counted, the energy equal to the unsharded step's
+              on the card, rtol 1e-6, CG equal).
 Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -139,7 +155,8 @@ launches are those of the main-mg run; `launches_lame` those of one
 main-lame run (5 iterations with the SIMP closure);
 `launches_unstructured` those of the main-unstructured run (0: no TPU
 kernel lies on that path); `launches_sharded` those of the two
-main-sharded runs together.
+main-sharded runs together; `launches_bench` those of the bench's 128^3
+trajectory (prelude included).
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -1726,6 +1743,121 @@ def run_sharded(pt, ck, mg_res):
     return launches
 
 
+# The JAX package's bench trajectory on a TPU v5 lite (BENCH_r05.json):
+# fine iteration -> (energy, CG count)
+BENCH_R05 = {1: (1.282740e-01, 8), 11: (1.225117e-01, 2),
+             60: (1.222905e-01, 2)}
+
+
+@contextlib.contextmanager
+def bench_env(**env):
+    """The environment with no BENCH_* knob but `env`."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+
+    def clear():
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+
+    clear()
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        clear()
+        os.environ.update(saved)
+
+
+def run_bench(pt, ck, card):
+    """Phase 17.  Returns the kernels' launches in the bench's 128^3
+    trajectory."""
+    import gc
+
+    from easysimp_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    for fn in (ck.voxel_matvec, ck.voxel_energies):
+        fn.launches = 0
+        fn.launches_by_dtype.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with bench_env():
+        run = bench.run_measurement()   # device="cuda", the defaults
+    torch.cuda.synchronize()
+    launches = {"voxel_matvec": ck.voxel_matvec.launches,
+                "voxel_energies": ck.voxel_energies.launches}
+    by_dtype = {fn.__name__: {str(k)[6:]: v for k, v in
+                              fn.launches_by_dtype.items()}
+                for fn in (ck.voxel_matvec, ck.voxel_energies)}
+    mv = dict(ck.voxel_matvec.launches_by_dtype)
+    wall = time.perf_counter() - t0
+    line = json.loads(json.dumps(run.payload))
+    phase("bench", f"line: {json.dumps(line)}")
+    phase("bench", f"  {len(run.energies)} fine iterations, CG "
+          f"{run.cgs}; energies {['%.6e' % e for e in run.energies]}")
+    phase("bench", f"  volume fraction of the final design "
+          f"{run.volume_fraction:.6f}; launches {launches}, by storage dtype "
+          f"{by_dtype}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {wall:.1f} s "
+          f"in all (build, prelude and first step included)")
+    for it, (e_ref, cg_ref) in BENCH_R05.items():
+        e = run.energies[it - 1]
+        phase("bench", f"  iteration {it:2d}: energy {e:.6e} CG "
+              f"{run.cgs[it - 1]} | BENCH_r05.json (JAX package, TPU) "
+              f"{e_ref:.6e} CG {cg_ref} | relative difference "
+              f"{abs(e - e_ref) / e_ref:.3e}")
+    assert line["metric"] == "simp_iterations_per_sec_128x128x128", line
+    assert "vs_baseline" not in line
+    for key in ("value", "early_its", "late_its"):
+        assert math.isfinite(line[key]) and line[key] > 0, (key, line)
+    assert line["early_cg"] < 500 and line["late_cg"] < 500, line
+    assert line["continuation"] and line["prelude_iters"] == 40, line
+    assert line["avg_iters_timed"] == 59, line
+    assert line["hardware"] == card, (line["hardware"], card)
+    assert all(math.isfinite(e) for e in run.energies)
+    assert abs(run.volume_fraction - 0.3) <= 1e-4, run.volume_fraction
+    assert mv[torch.float32] > 0 and mv[torch.bfloat16] > 0, by_dtype
+    assert ck.voxel_energies.launches > 0
+    for it, (e_ref, _) in BENCH_R05.items():
+        assert abs(run.energies[it - 1] - e_ref) <= 1e-2 * e_ref, it
+    for name, ms, how in bench.phase_breakdown(run.stepper):
+        phase("bench", f"  phase {name}: {ms:.4f} ms ({how})")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with bench_env(BENCH_ITERS="3", BENCH_LATE_START="8"):
+        un = bench.run_unstructured("24")
+    phase("bench", f"BENCH_UNSTRUCTURED=24 line: {json.dumps(un.payload)}")
+    phase("bench", f"  CG {un.cgs}; energies "
+          f"{['%.6e' % e for e in un.energies]}")
+    for name, ms, how in bench.unstructured_phase_breakdown(
+            un.step, un.free_mask, un.design):
+        phase("bench", f"  phase {name}: {ms:.4f} ms ({how})")
+    assert un.payload["metric"] == \
+        "simp_iterations_per_sec_unstructured_tet24"
+    assert un.payload["value"] > 0 and len(un.energies) == 11
+    assert all(math.isfinite(e) for e in un.energies)
+    assert all(c < 2000 for c in un.cgs), un.cgs
+    del un
+    gc.collect()
+
+    nels = (64, 64, 64)
+    with bench_env(BENCH_NELS="64,64,64"):
+        sh = bench.run_sharded_evidence(4)
+    vs, _ = bench.sharded_problem(nels, "float32", "cuda")
+    one = bench.first_step(vs)
+    energy = float(one.energy)
+    phase("bench", f"BENCH_SHARDED=4 line: {json.dumps(sh)}")
+    phase("bench", f"  unsharded step on the card: energy {energy:.6e} CG "
+          f"{one.cg_iters}; relative difference "
+          f"{abs(sh['energy'] - energy) / abs(energy):.3e}")
+    assert sh["halo_copies"] > 0 and sh["reductions"] > 0, sh
+    assert sh["cg_iters"] == one.cg_iters, (sh, one.cg_iters)
+    assert abs(sh["energy"] - energy) <= 1e-6 * abs(energy), sh
+    phase("bench", f"phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 MG_RANGES = [("mg:setup", "im2col and setup"),
              ("mg:dense_solve", "dense solve"),
              ("mg:transfer", "transfers"),
@@ -1926,12 +2058,14 @@ def main() -> int:
         launches_un = run_main_unstructured(pt, ck)
         run_e2e_unstructured(pt, ck)
         launches_sh = run_sharded(pt, ck, res_mg)
+        launches_bench = run_bench(pt, ck, card.strip().splitlines()[0])
         kernels = [{
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "launches_lame": launches_lame[name],
             "launches_unstructured": launches_un[name],
-            "launches_sharded": launches_sh[name], **timing[name],
+            "launches_sharded": launches_sh[name],
+            "launches_bench": launches_bench[name], **timing[name],
         } for name in ("voxel_matvec", "voxel_energies")]
         print(json.dumps({"kernels": kernels}), flush=True)
         phase("total", f"chip_smoke.py took "

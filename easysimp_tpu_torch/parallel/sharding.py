@@ -404,6 +404,9 @@ def _infer_kind(blocks, layout, prefer):
 
 
 def _add_in_order(parts, device):
+    """Per-shard partials added in shard order on `device`: one global
+    reduction (counted in `ShardedField.reductions`)."""
+    ShardedField.reductions += 1
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
@@ -412,7 +415,11 @@ def _add_in_order(parts, device):
 
 class ShardedField:
     """The blocks of one field over a mesh, one per shard, each on its
-    shard's device (see the module docstring for the ops it supports)."""
+    shard's device (see the module docstring for the ops it supports).
+    `ShardedField.reductions` counts the global reductions (partials of
+    every shard joined on one device) since it was last set to 0."""
+
+    reductions = 0
 
     def __init__(self, blocks, layout, kind):
         self.blocks = list(blocks)
@@ -484,6 +491,7 @@ class ShardedField:
         if name == "mean":
             n = sum(b.numel() for b in self.blocks)
             return _add_in_order([b.sum() for b in self.blocks], dev) / n
+        ShardedField.reductions += 1
         parts = torch.stack([b.amax() if name in ("max", "amax") else b.amin()
                              for b in (x.to(dev) for x in self.blocks)])
         return parts.amax() if name in ("max", "amax") else parts.amin()
