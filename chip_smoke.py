@@ -1,9 +1,6 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (sm_90a).
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --trace 3  # multigrid main path only, iteration 3
-                                     # profiled (chrome trace into
-                                     # --trace-dir)
 
 Phases, each of which asserts and prints a line:
   1. card:    the `nvidia-smi` name and power limit;
@@ -165,7 +162,6 @@ package is missing.
 from __future__ import annotations
 
 import argparse
-import collections
 import contextlib
 import dataclasses
 import json
@@ -175,7 +171,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -192,6 +187,32 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published peaks at 700 W
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+
+
+KERNELS = ("voxel_matvec", "voxel_energies")
+STORAGE = (torch.float64, torch.float32, torch.bfloat16)
+
+
+def launch_snapshot(ck):
+    """Both kernels' launches so far, by (kernel, storage dtype), from the
+    port's counters."""
+    return {(k, dt): ck.launches(k, dt) for k in KERNELS for dt in STORAGE}
+
+
+def launches_since(ck, before):
+    """({kernel: launches}, {kernel: {storage dtype: launches}}) since the
+    `launch_snapshot` `before`; a dtype that did not launch is left out."""
+    by_dtype = {k: {} for k in KERNELS}
+    for (k, dt), n in launch_snapshot(ck).items():
+        if n > before[(k, dt)]:
+            by_dtype[k][dt] = n - before[(k, dt)]
+    return {k: sum(v.values()) for k, v in by_dtype.items()}, by_dtype
+
+
+def dtype_names(by_dtype):
+    """{kernel: {"float32": launches, ...}} for printing."""
+    return {k: {str(dt)[6:]: n for dt, n in v.items()}
+            for k, v in by_dtype.items()}
 
 
 def phase(name, msg):
@@ -480,14 +501,12 @@ def run_main_path(pt, ck):
     nels = (128, 128, 128)
     grid, loads, bcs = cantilever(pt, nels)
     params = main_path_params(pt)
-    ck.voxel_matvec.launches = 0
-    ck.voxel_energies.launches = 0
+    before = launch_snapshot(ck)
     t0 = time.perf_counter()
     res = pt.simp_optimize(grid, loads, bcs, params)  # device="cuda"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"voxel_matvec": ck.voxel_matvec.launches,
-                "voxel_energies": ck.voxel_energies.launches}
+    launches, _ = launches_since(ck, before)
     vol_fracs = [v / grid.total_volume for v in res.volume_history]
     phase("main", f"128^3 float32 Jacobi: {res.iterations} iterations, "
           f"seconds/iteration {res.iteration_seconds}, "
@@ -544,14 +563,14 @@ def run_e2e_check(pt, ck):
             filter_radius=1.5, dtype=dtype, max_iterations=3,
             tolerance=1e-9, preconditioner=precond, cg_rtol=cg_rtol,
             mg_cycle_dtype=cycle, mg_smooth_iters=(1, 2))
-        launches0 = ck.voxel_matvec.launches
+        launches0 = ck.launches("voxel_matvec")
         kern = pt.simp_optimize(*cantilever(pt, nels), params, device="cuda")
-        assert ck.voxel_matvec.launches > launches0
+        assert ck.launches("voxel_matvec") > launches0
         with operator_on_plain_versions():
-            launches0 = ck.voxel_matvec.launches
+            launches0 = ck.launches("voxel_matvec")
             plain = pt.simp_optimize(*cantilever(pt, nels), params,
                                      device="cuda")
-            assert ck.voxel_matvec.launches == launches0
+            assert ck.launches("voxel_matvec") == launches0
         others = [("plain on the card", plain)]
         if with_cpu:
             others.append(("CPU", pt.simp_optimize(*cantilever(pt, nels),
@@ -610,10 +629,10 @@ def check_multigrid(pt, ck):
         plain = (operator_on_plain_versions() if name.startswith("plain")
                  else contextlib.nullcontext())
         with plain:
-            launches0 = ck.voxel_matvec.launches
+            launches0 = ck.launches("voxel_matvec")
             mg = MultigridPreconditioner(op, **kw)
             runs[name] = mg.preconditioner_factory()(scale, mask)(r)
-            assert (ck.voxel_matvec.launches > launches0) == \
+            assert (ck.launches("voxel_matvec") > launches0) == \
                 (name == "kernels"), name
     for name in ("plain on the card", "CPU"):
         rel = max_rel(runs["kernels"], runs[name])
@@ -644,10 +663,10 @@ def check_multigrid(pt, ck):
     torch.cuda.synchronize()
     same = torch.equal(got, again)
     with operator_on_plain_versions():
-        launches0 = ck.voxel_matvec.launches
+        launches0 = ck.launches("voxel_matvec")
         state_p, _ = mg.setup(scale, mask, pvecs)
         want = mg.make_M(state_p)(r)
-        assert ck.voxel_matvec.launches == launches0
+        assert ck.launches("voxel_matvec") == launches0
         del state_p
     rel = max_rel(got, want)
     ok = rel <= 5e-2 and bool(torch.isfinite(got).all())
@@ -746,9 +765,7 @@ def run_main_mg(pt, ck):
     grid, loads, bcs = cantilever(pt, (128, 128, 128))
     params = main_mg_params(pt)
 
-    for fn in (ck.voxel_matvec, ck.voxel_energies):
-        fn.launches = 0
-        fn.launches_by_dtype.clear()
+    before = launch_snapshot(ck)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -756,12 +773,8 @@ def run_main_mg(pt, ck):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {"voxel_matvec": ck.voxel_matvec.launches,
-                "voxel_energies": ck.voxel_energies.launches}
-    by_dtype = {fn.__name__: {str(k)[6:]: v for k, v in
-                              fn.launches_by_dtype.items()}
-                for fn in (ck.voxel_matvec, ck.voxel_energies)}
-    mv = dict(ck.voxel_matvec.launches_by_dtype)
+    launches, by_dtype = launches_since(ck, before)
+    mv = by_dtype["voxel_matvec"]
 
     times = {"power_init": [], "setup": [], "step": []}
     kinds = []      # "F" full setup, "L" light setup (on a previous state)
@@ -797,7 +810,7 @@ def run_main_mg(pt, ck):
     phase("main-mg", f"  volume fraction {vol_fracs}, total {wall:.2f} s "
           f"(power_init and final analysis included), peak memory "
           f"{peak / 1e9:.3f} GB, launches {launches}, by storage dtype "
-          f"{by_dtype}")
+          f"{dtype_names(by_dtype)}")
     assert res.iterations == params.max_iterations
     assert all(math.isfinite(e) for e in res.energy_history)
     assert math.isfinite(res.energy)
@@ -810,22 +823,20 @@ def run_main_mg(pt, ck):
     assert all(abs(a - b) <= 5e-4 * abs(b) for a, b in
                zip(timed_res.energy_history, res.energy_history))
     assert all(c < 500 for c in timed_res.cg_iterations_history)
-    assert mv[torch.float32] > 0 and mv[torch.bfloat16] > 0, by_dtype
-    assert ck.voxel_energies.launches > 0
+    assert mv.get(torch.float32, 0) > 0 and mv.get(torch.bfloat16, 0) > 0, \
+        by_dtype
+    assert launches["voxel_energies"] > 0
     return launches, grid, res
 
 
 def counted_run(pt, ck, problem, params, **kw):
-    """simp_optimize on the card with both kernels' counters set to 0 just
-    before: (result, {kernel: launches}, {matvec storage dtype: launches})."""
-    for fn in (ck.voxel_matvec, ck.voxel_energies):
-        fn.launches = 0
-        fn.launches_by_dtype.clear()
+    """simp_optimize on the card: (result, {kernel: launches}, {matvec
+    storage dtype: launches}) of that run."""
+    before = launch_snapshot(ck)
     res = pt.simp_optimize(*problem, params, **kw)  # device="cuda"
     torch.cuda.synchronize()
-    launches = {"voxel_matvec": ck.voxel_matvec.launches,
-                "voxel_energies": ck.voxel_energies.launches}
-    return res, launches, dict(ck.voxel_matvec.launches_by_dtype)
+    launches, by_dtype = launches_since(ck, before)
+    return res, launches, by_dtype["voxel_matvec"]
 
 
 def check_lame(pt, ck):
@@ -851,10 +862,10 @@ def check_lame(pt, ck):
             ke_lam, ke_mu = op.ke_lame_basis
             for case, lam in [("random lam, mu", lam64.to(dtype)),
                               ("lam = 0", torch.zeros_like(mu))]:
-                n0 = ck.voxel_matvec.launches
+                n0 = ck.launches("voxel_matvec")
                 got = op.apply_K_lame(u, lam, mu)
                 again = op.apply_K_lame(u, lam, mu)
-                assert ck.voxel_matvec.launches == n0 + 4
+                assert ck.launches("voxel_matvec") == n0 + 4
                 ok, err, ref = agree(got, op.apply_K_lame_plain(u, lam, mu),
                                      kind, tol_mv)
                 same = torch.equal(got, again)
@@ -864,10 +875,10 @@ def check_lame(pt, ck):
                       f"runs bitwise equal: {same} "
                       f"{'ok' if ok and same else 'FAIL'}")
                 assert ok and same
-            n0 = ck.voxel_energies.launches
+            n0 = ck.launches("voxel_energies")
             wl, wm = op.element_energies_lame(u)
             wl2, wm2 = op.element_energies_lame(u)
-            assert ck.voxel_energies.launches == n0 + 4
+            assert ck.launches("voxel_energies") == n0 + 4
             for name, w, w2, ke in [("lam", wl, wl2, ke_lam),
                                     ("mu", wm, wm2, ke_mu)]:
                 ok, err, ref = agree(w, ck.voxel_energies_plain(u, ke), kind,
@@ -1148,9 +1159,6 @@ def check_io(pt, ck, grid_mg, res_mg):
         assert state["design"].shape == (128, 128, 128)
 
 
-# Trace groups for the kernels launched inside these ranges (the innermost
-# matching range wins in this order), after the kernel-name groups.
-
 def tet_cantilever(pt, nels):
     """The bench.py:262-281 problem: the cantilever on the 6-tets-per-voxel
     mesh of a grid of `nels`."""
@@ -1298,8 +1306,7 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     nels = (n, n, n)
     mesh, loads, bcs = tet_cantilever(pt, nels)
     params = unstructured_params(pt, iterations)
-    for fn in (ck.voxel_matvec, ck.voxel_energies):
-        fn.launches = 0
+    before = launch_snapshot(ck)
     first, second = {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1309,8 +1316,7 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {"voxel_matvec": ck.voxel_matvec.launches,
-                "voxel_energies": ck.voxel_energies.launches}
+    launches, _ = launches_since(ck, before)
     us = first["us"]
     assert us.device.type == "cuda" and us.dtype == torch.float32
     parts = us.build_seconds
@@ -1612,8 +1618,7 @@ def run_main_sharded(pt, ck, mg_res):
             return vs
 
         mesh = make_mesh(n, shape=shape, devices=shard_devices(n))
-        for fn in (ck.voxel_matvec, ck.voxel_energies):
-            fn.launches = 0
+        before = launch_snapshot(ck)
         c0, b0 = halo.extend.copies, halo.extend.bytes
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1623,8 +1628,7 @@ def run_main_sharded(pt, ck, mg_res):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        run = {"voxel_matvec": ck.voxel_matvec.launches,
-               "voxel_energies": ck.voxel_energies.launches}
+        run, _ = launches_since(ck, before)
         copies, nbytes = halo.extend.copies - c0, halo.extend.bytes - b0
         for k in launches:
             launches[k] += run[k]
@@ -1775,20 +1779,14 @@ def run_bench(pt, ck, card):
     from easysimp_tpu_torch import bench
 
     t0 = time.perf_counter()
-    for fn in (ck.voxel_matvec, ck.voxel_energies):
-        fn.launches = 0
-        fn.launches_by_dtype.clear()
+    before = launch_snapshot(ck)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with bench_env():
         run = bench.run_measurement()   # device="cuda", the defaults
     torch.cuda.synchronize()
-    launches = {"voxel_matvec": ck.voxel_matvec.launches,
-                "voxel_energies": ck.voxel_energies.launches}
-    by_dtype = {fn.__name__: {str(k)[6:]: v for k, v in
-                              fn.launches_by_dtype.items()}
-                for fn in (ck.voxel_matvec, ck.voxel_energies)}
-    mv = dict(ck.voxel_matvec.launches_by_dtype)
+    launches, by_dtype = launches_since(ck, before)
+    mv = by_dtype["voxel_matvec"]
     wall = time.perf_counter() - t0
     line = json.loads(json.dumps(run.payload))
     phase("bench", f"line: {json.dumps(line)}")
@@ -1796,7 +1794,7 @@ def run_bench(pt, ck, card):
           f"{run.cgs}; energies {['%.6e' % e for e in run.energies]}")
     phase("bench", f"  volume fraction of the final design "
           f"{run.volume_fraction:.6f}; launches {launches}, by storage dtype "
-          f"{by_dtype}; peak memory "
+          f"{dtype_names(by_dtype)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {wall:.1f} s "
           f"in all (build, prelude and first step included)")
     for it, (e_ref, cg_ref) in BENCH_R05.items():
@@ -1815,8 +1813,9 @@ def run_bench(pt, ck, card):
     assert line["hardware"] == card, (line["hardware"], card)
     assert all(math.isfinite(e) for e in run.energies)
     assert abs(run.volume_fraction - 0.3) <= 1e-4, run.volume_fraction
-    assert mv[torch.float32] > 0 and mv[torch.bfloat16] > 0, by_dtype
-    assert ck.voxel_energies.launches > 0
+    assert mv.get(torch.float32, 0) > 0 and mv.get(torch.bfloat16, 0) > 0, \
+        by_dtype
+    assert launches["voxel_energies"] > 0
     for it, (e_ref, _) in BENCH_R05.items():
         assert abs(run.energies[it - 1] - e_ref) <= 1e-2 * e_ref, it
     for name, ms, how in bench.phase_breakdown(run.stepper):
@@ -1858,166 +1857,9 @@ def run_bench(pt, ck, card):
     return launches
 
 
-MG_RANGES = [("mg:setup", "im2col and setup"),
-             ("mg:dense_solve", "dense solve"),
-             ("mg:transfer", "transfers"),
-             ("mg:stencil", "stencil apply")]
-
-
-@contextlib.contextmanager
-def annotated_multigrid():
-    """Profiler ranges around the multigrid's stencil applies, transfers
-    and coarsest solves (a tracing harness only)."""
-    from torch.profiler import record_function
-
-    from easysimp_tpu_torch.ops import multigrid as mgm
-
-    def ranged(fn, label):
-        def call(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return call
-
-    cls = mgm.MultigridPreconditioner
-    saved = (mgm.apply_stencil, mgm.prolong, mgm.restrict,
-             cls.__dict__["_cholesky_solve"])
-    mgm.apply_stencil = ranged(saved[0], "mg:stencil")
-    mgm.prolong = ranged(saved[1], "mg:transfer")
-    mgm.restrict = ranged(saved[2], "mg:transfer")
-    cls._cholesky_solve = staticmethod(ranged(saved[3].__func__,
-                                              "mg:dense_solve"))
-    try:
-        yield
-    finally:
-        mgm.apply_stencil, mgm.prolong, mgm.restrict = saved[:3]
-        cls._cholesky_solve = saved[3]
-
-
-def trace_groups(path):
-    """Device time by group from an exported chrome trace: each kernel is
-    tied to its launch (by correlation id) and grouped by its name or by
-    the profiler ranges around its launch."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    launch_at, ranges, kernels = {}, [], []
-    for e in events:
-        cat, args = e.get("cat", ""), e.get("args", {})
-        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
-            launch_at[args["correlation"]] = (e["ts"], e.get("tid"))
-        elif cat == "user_annotation" and e["name"].startswith("mg:"):
-            ranges.append((e["ts"], e["ts"] + e.get("dur", 0), e.get("tid"),
-                           e["name"]))
-        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            kernels.append(e)
-    groups = collections.Counter()
-    for k in kernels:
-        name, dur = k["name"], k.get("dur", 0)
-        ts, tid = launch_at.get(k.get("args", {}).get("correlation"),
-                                (None, None))
-        inside = {label for a, b, t, label in ranges
-                  if ts is not None and t == tid and a <= ts <= b}
-        low = name.lower()
-        if "voxel_matvec" in name:
-            key = ("voxel_matvec bf16" if "bfloat16" in low
-                   else "voxel_matvec fp32")
-        elif "voxel_energies" in name:
-            key = "voxel_energies"
-        else:
-            key = next((g for label, g in MG_RANGES if label in inside), None)
-        if key is None:
-            key = ("dots and reductions" if any(
-                       w in low for w in ("dot", "reduce", "gemv"))
-                   else "PyTorch elementwise" if "elementwise" in low
-                   else "other")
-        groups[key] += dur
-    return groups
-
-
-def trace_main_path(pt, ck, iteration, out_dir):
-    """The multigrid main path with `torch.profiler` on one SIMP iteration
-    (its setup and its step): device time by group and the device's idle
-    share in that iteration.  The chrome trace goes to `out_dir`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    window = {}
-
-    def wrap(vs):
-        steps = [0]
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-
-        def begin():
-            if steps[0] == iteration - 1 and "prof" not in window:
-                torch.cuda.synchronize()
-                prof.__enter__()
-                window.update(prof=prof, t0=time.perf_counter())
-
-        def setup(*a, **kw):
-            begin()
-            with record_function("mg:setup"):
-                return vs.setup(*a, **kw)
-
-        def step(*a, **kw):
-            begin()
-            out = vs.step(*a, **kw)
-            steps[0] += 1
-            if steps[0] == iteration:
-                torch.cuda.synchronize()
-                window.update(wall=time.perf_counter() - window["t0"],
-                              cg=out.cg_iters)
-                prof.__exit__(None, None, None)
-            return out
-        return dataclasses.replace(vs, setup=setup, step=step)
-
-    grid, loads, bcs = cantilever(pt, (128, 128, 128))
-    with patched_voxel_step(wrap), annotated_multigrid():
-        pt.simp_optimize(grid, loads, bcs,
-                         main_mg_params(pt, iterations=iteration))
-    prof = window["prof"]
-    # device events, without the device-side spans of the profiler ranges
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == DeviceType.CUDA
-               and not e.name.startswith("mg:")]
-    assert kernels, "the profiler recorded no device time"
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:  # union of the kernel intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + (e.time_range.end - e.time_range.start), n + 1)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / f"trace_mg_iteration{iteration}.json"
-    prof.export_chrome_trace(str(path))
-    groups = trace_groups(path)
-    wall_ms, busy_ms = window["wall"] * 1e3, busy_us / 1e3
-    phase("trace", f"multigrid iteration {iteration} (setup and step): CG "
-          f"{window['cg']}, wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(kernels)} device "
-          f"events")
-    total = sum(groups.values())
-    for key, t in groups.most_common():
-        phase("trace", f"  {key}: {t / 1e3:.2f} ms, "
-              f"{100 * t / total:.1f}% of kernel time")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        phase("trace", f"  {t / 1e3:8.2f} ms {n:6d} x  {name[:110]}")
-    phase("trace", f"chrome trace: {path}")
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--trace", type=int, metavar="ITERATION",
-                        help="run only the multigrid main path, profiling "
-                             "this SIMP iteration")
-    parser.add_argument("--trace-dir", type=Path, default=Path("traces"),
-                        help="where --trace writes its chrome trace "
-                             "(default: traces/)")
-    args = parser.parse_args()
+    parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2041,35 +1883,32 @@ def main() -> int:
     phase("build", f"{time.perf_counter() - t0:.2f} s -> "
           f"{ck.build_info['path']}; ptxas: {ptxas}")
 
-    if args.trace:
-        trace_main_path(pt, ck, args.trace, args.trace_dir)
-    else:
-        timing = check_kernels(pt, ck)
-        timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
-        run_main_path(pt, ck)
-        check_multigrid(pt, ck)
-        launches, grid_mg, res_mg = run_main_mg(pt, ck)
-        run_e2e_check(pt, ck)
-        check_lame(pt, ck)
-        launches_lame = run_main_lame(pt, ck, res_mg)
-        run_continuation(pt, ck, res_mg)
-        check_io(pt, ck, grid_mg, res_mg)
-        check_unstructured_ops(pt, ck)
-        launches_un = run_main_unstructured(pt, ck)
-        run_e2e_unstructured(pt, ck)
-        launches_sh = run_sharded(pt, ck, res_mg)
-        launches_bench = run_bench(pt, ck, card.strip().splitlines()[0])
-        kernels = [{
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "launches_lame": launches_lame[name],
-            "launches_unstructured": launches_un[name],
-            "launches_sharded": launches_sh[name],
-            "launches_bench": launches_bench[name], **timing[name],
-        } for name in ("voxel_matvec", "voxel_energies")]
-        print(json.dumps({"kernels": kernels}), flush=True)
-        phase("total", f"chip_smoke.py took "
-              f"{time.perf_counter() - t_start:.1f} s")
+    timing = check_kernels(pt, ck)
+    timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
+    run_main_path(pt, ck)
+    check_multigrid(pt, ck)
+    launches, grid_mg, res_mg = run_main_mg(pt, ck)
+    run_e2e_check(pt, ck)
+    check_lame(pt, ck)
+    launches_lame = run_main_lame(pt, ck, res_mg)
+    run_continuation(pt, ck, res_mg)
+    check_io(pt, ck, grid_mg, res_mg)
+    check_unstructured_ops(pt, ck)
+    launches_un = run_main_unstructured(pt, ck)
+    run_e2e_unstructured(pt, ck)
+    launches_sh = run_sharded(pt, ck, res_mg)
+    launches_bench = run_bench(pt, ck, card.strip().splitlines()[0])
+    kernels = [{
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES[name], "launches": launches[name],
+        "launches_lame": launches_lame[name],
+        "launches_unstructured": launches_un[name],
+        "launches_sharded": launches_sh[name],
+        "launches_bench": launches_bench[name], **timing[name],
+    } for name in KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    phase("total", f"chip_smoke.py took "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

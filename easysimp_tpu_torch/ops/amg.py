@@ -59,6 +59,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import config  # noqa: F401  (pins TF32 off)
+from ..tracing import spanned, sync
 from .operator import group_sum, padded_groups
 
 __all__ = ["greedy_aggregate", "rigid_body_prolongator", "MultilevelAMG"]
@@ -691,7 +692,8 @@ class MultilevelAMG:
         m = free_mask.reshape(self.n_nodes, 3).to(self.dtype)
         B = B * m[:, :, None] * m[:, None, :]
         B = B + (1.0 - m)[:, :, None] * eye
-        return torch.linalg.inv(B)
+        with sync("amg_l1_inv"):        # linalg.inv reads its status back
+            return torch.linalg.inv(B)
 
     def _level_l1_binv(self, l, blocks):
         """Inverse l1-regularized 6x6 diagonal blocks of A_l."""
@@ -704,7 +706,8 @@ class MultilevelAMG:
         d = torch.diagonal(B, dim1=1, dim2=2)
         fix = (d <= 1e-30).to(B.dtype)
         B = B + fix[:, :, None] * eye
-        return torch.linalg.inv(B)
+        with sync("amg_l1_inv"):
+            return torch.linalg.inv(B)
 
     def _coarsest_factor(self, blocks):
         """Dense coarsest assembly + DIAGONALLY-SCALED regularized Cholesky.
@@ -736,6 +739,7 @@ class MultilevelAMG:
         L, _ = torch.linalg.cholesky_ex(As)
         return L, dinv_sqrt
 
+    @spanned("amg.setup")
     def setup(self, scale, free_mask, Binv=None, A=None):
         """Once per SIMP iteration.  Returns the opaque state dict for
         `apply`: per-level operator blocks + l1-regularized block-Jacobi
@@ -842,6 +846,7 @@ class MultilevelAMG:
             z = z + torch.einsum("nki,ni->nk", P, zc[self.agg_coarse[l]])
         return self._chebyshev(Bapply, Aapply, r, z, deg)
 
+    @spanned("amg.vcycle")
     def apply(self, r, A, Binv, state, free_mask):
         """Symmetric multilevel cycle: Chebyshev l1-block-Jacobi
         pre-smooth, recursive coarse correction, matching post-smooth.

@@ -1,8 +1,9 @@
 """Matrix-free preconditioned conjugate gradients, with subspace recycling.
 
 Port of easysimp_tpu/ops/cg.py.  The loop runs in Python and checks the
-residual norm on the host once per iteration; the stopping rule and the
-order of updates are the reference's, so the iteration count is too.
+residual norm on the host once per iteration (`host_read`, counted as
+`sync.cg_norm`); the stopping rule and the order of updates are the
+reference's, so the iteration count is too.
 
 The fields may be tensors or sharded fields (parallel/sharding.py): the
 inner products go through `_vdot` and the deflation's Gram products through
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..tracing import count, host_read, span, spanned, sync
 
 __all__ = ["CGResult", "cg_solve", "recycle_init", "recycle_push",
            "recycle_deflate"]
@@ -67,6 +70,25 @@ def _gram(W, V):
     return W.gram(V)
 
 
+def _deflate(A, W, x0, r0):
+    """Galerkin projection of the warm start over span(W): (x0, r0) after
+    it, or as they were where it did not shrink ||r0||."""
+    m = W.shape[0]
+    AW = torch.stack([A(W[i]) for i in range(m)])
+    G = _gram(W, AW)
+    g = _gram(W, r0[None])[:, 0]
+    eps = 10.0 * torch.finfo(G.dtype).eps \
+        * torch.diagonal(G).abs().max() + 1e-30
+    eye = torch.eye(m, dtype=G.dtype, device=G.device)
+    with sync("cg_deflate"):        # linalg.solve reads its status back
+        y = torch.linalg.solve(G + eps * eye, g)
+    x0_p = x0 + torch.tensordot(y, W, dims=1)
+    r0_p = r0 - torch.tensordot(y, AW, dims=1)
+    better = _vdot(r0_p, r0_p) < _vdot(r0, r0)
+    return torch.where(better, x0_p, x0), torch.where(better, r0_p, r0)
+
+
+@spanned("cg")
 def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
              rtol: float = 1e-10, atol: float = 0.0, maxiter: int = 10000,
              deflate=None) -> CGResult:
@@ -94,19 +116,8 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
 
     r0 = b - A(x0)
     if deflate is not None and deflate.shape[0] > 0:
-        m = deflate.shape[0]
-        AW = torch.stack([A(deflate[i]) for i in range(m)])
-        G = _gram(deflate, AW)
-        g = _gram(deflate, r0[None])[:, 0]
-        eps = 10.0 * torch.finfo(G.dtype).eps \
-            * torch.diagonal(G).abs().max() + 1e-30
-        eye = torch.eye(m, dtype=G.dtype, device=G.device)
-        y = torch.linalg.solve(G + eps * eye, g)
-        x0_p = x0 + torch.tensordot(y, deflate, dims=1)
-        r0_p = r0 - torch.tensordot(y, AW, dims=1)
-        better = _vdot(r0_p, r0_p) < _vdot(r0, r0)
-        x0 = torch.where(better, x0_p, x0)
-        r0 = torch.where(better, r0_p, r0)
+        with span("cg.deflate"):
+            x0, r0 = _deflate(A, deflate, x0, r0)
 
     x, r = x0, r0
     z = M(r)
@@ -114,7 +125,8 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
     rz = _vdot(r, z)
     zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
     k = 0
-    while k < maxiter and bool(torch.sqrt(_vdot(r, r)) > tol):
+    while k < maxiter and bool(host_read("cg_norm",
+                                         torch.sqrt(_vdot(r, r)) > tol)):
         Ap = A(p)
         pAp = _vdot(p, Ap)
         alpha = torch.where(pAp > 0, rz / pAp, zero)
@@ -126,6 +138,7 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
         p = z + beta * p
         rz = rz_new
         k += 1
-    return CGResult(u=x, iterations=k,
-                    residual_norm=float(torch.sqrt(_vdot(r, r))),
+    count("cg.iterations", k)
+    rnorm = float(host_read("cg_exit", torch.sqrt(_vdot(r, r))))
+    return CGResult(u=x, iterations=k, residual_norm=rnorm,
                     u_dot_r=_vdot(x, r))

@@ -1,5 +1,5 @@
 """The voxel operator's two hand-written CUDA kernels, their plain PyTorch
-versions, their launch counters and their build.
+versions and their build.
 
 Counterpart of easysimp_tpu/ops/pallas_kernels.py:
 
@@ -22,8 +22,9 @@ Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
 plain version (the reference XLA path's gather -> (N,24)@(24,24) ->
 scatter-add, written in PyTorch), a CUDA tensor launches the kernel or
 raises.  There is no fallback: a missing `nvcc`, a failed build or a refused
-launch raises.  `<wrapper>.launches` counts kernel launches and nothing else;
-`<wrapper>.launches_by_dtype` counts the same launches by storage dtype.
+launch raises.  Each launch adds one to the port's counter
+`launch.<kernel>.<storage dtype>` (`tracing.counters()`, for example
+`launch.voxel_matvec.bfloat16`); `launches` sums them.
 
 bf16 storage computes in fp32, as the Pallas kernels do: the wrappers take
 `ke` in the compute dtype (float64 for float64 storage, float32 otherwise).
@@ -31,7 +32,6 @@ bf16 storage computes in fp32, as the Pallas kernels do: the wrappers take
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -42,6 +42,7 @@ from pathlib import Path
 
 import torch
 
+from ..tracing import count, counters
 from .elements import HEX_CORNERS
 
 __all__ = [
@@ -55,12 +56,24 @@ __all__ = [
     "voxel_matvec_simple_f32",
     "tf32_round",
     "build_kernels",
+    "launches",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+_COUNTER = {k: {dt: f"launch.{k}.{str(dt)[6:]}" for dt in _SUFFIX}
+            for k in ("voxel_matvec", "voxel_energies")}
+
+
+def launches(kernel, dtype=None):
+    """Launches of `kernel` ("voxel_matvec" or "voxel_energies") so far,
+    of one storage dtype or of all."""
+    c = counters()
+    return sum(c.get(name, 0) for dt, name in _COUNTER[kernel].items()
+               if dtype is None or dt == dtype)
+
 
 _lib = None          # the loaded shared library (built at first CUDA use)
 build_info: dict = {}  # path, seconds and compiler output of the last build
@@ -255,13 +268,8 @@ def voxel_matvec(u, scale, ke):
     if u.device.type != "cuda":
         raise ValueError(f"no voxel_matvec for device {u.device}")
     out = _launch_matvec(f"voxel_matvec_{_SUFFIX[u.dtype]}", u, scale, ke)
-    voxel_matvec.launches += 1
-    voxel_matvec.launches_by_dtype[u.dtype] += 1
+    count(_COUNTER["voxel_matvec"][u.dtype])
     return out
-
-
-voxel_matvec.launches = 0
-voxel_matvec.launches_by_dtype = collections.Counter()
 
 
 def voxel_matvec_simple_f32(u, scale, ke):
@@ -271,12 +279,7 @@ def voxel_matvec_simple_f32(u, scale, ke):
     if u.device.type != "cuda" or u.dtype != torch.float32:
         raise ValueError("voxel_matvec_simple_f32 takes CUDA float32 "
                          f"tensors, got {u.dtype} on {u.device}")
-    out = _launch_matvec("voxel_matvec_simple_f32", u, scale, ke)
-    voxel_matvec_simple_f32.launches += 1
-    return out
-
-
-voxel_matvec_simple_f32.launches = 0
+    return _launch_matvec("voxel_matvec_simple_f32", u, scale, ke)
 
 
 def voxel_energies(u, ke):
@@ -297,10 +300,5 @@ def voxel_energies(u, ke):
         err = getattr(lib, f"voxel_energies_{_SUFFIX[u.dtype]}")(
             u.data_ptr(), ke.data_ptr(), out.data_ptr(), nx, ny, nz, stream)
     _raise_on(err, "voxel_energies")
-    voxel_energies.launches += 1
-    voxel_energies.launches_by_dtype[u.dtype] += 1
+    count(_COUNTER["voxel_energies"][u.dtype])
     return out
-
-
-voxel_energies.launches = 0
-voxel_energies.launches_by_dtype = collections.Counter()

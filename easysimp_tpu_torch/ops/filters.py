@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..tracing import spanned
 from ..utils.terminal import print_data
 
 __all__ = ["VoxelFilter", "UnstructuredFilter", "FilterCacheTypes",
@@ -119,6 +120,7 @@ class VoxelFilter:
         return F.conv3d(x[None, None], self._kernel,
                         padding=self._padding)[0, 0]
 
+    @spanned("filter")
     def sensitivity_filter(self, design_rho, sens):
         """Sigmund sensitivity filter (SensitivityFilter.jl:33-67), called
         with DESIGN densities as the reference does."""
@@ -126,10 +128,12 @@ class VoxelFilter:
         rho_safe = torch.clamp(design_rho, min=1e-3)
         return num / (rho_safe * self.weight_sum)
 
+    @spanned("filter")
     def density_filter(self, design_rho):
         """rho~ = conv(rho) / W (DensityFilter.jl:30-60)."""
         return self._conv(design_rho) / self.weight_sum
 
+    @spanned("filter")
     def chain_rule(self, sens_physical):
         """Transpose of the density filter (DensityFilter.jl:77-117)."""
         return self._conv(sens_physical / self.weight_sum)
@@ -192,6 +196,7 @@ class UnstructuredFilter:
         blk.all_wv_sum = self.all_wv_sum.to(device)
         return blk
 
+    @spanned("filter")
     def sensitivity_filter(self, design_rho, sens):
         rho_j = design_rho[self.neighbors]
         s_j = sens[self.neighbors]
@@ -202,6 +207,7 @@ class UnstructuredFilter:
         return torch.where(self.weight_sum > 1e-12, num / den,
                            sens[self.rows])
 
+    @spanned("filter")
     def density_filter(self, design_rho):
         rho_j = design_rho[self.neighbors]
         v_j = self.all_volumes[self.neighbors]
@@ -209,6 +215,7 @@ class UnstructuredFilter:
         return torch.where(self.wv_sum > 1e-12, num / self.wv_sum,
                            design_rho[self.rows])
 
+    @spanned("filter")
     def chain_rule(self, sens_physical):
         # out_e = V_e * sum_{i in nb(e)} H_ei * s_i / (sum_j H_ij V_j)
         # (H symmetric; neighbor relation symmetric).

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..grids import VoxelGrid
+from ..tracing import span
 from .cg import _vdot
 from .operator import VoxelOperator
 from .stencil import (
@@ -373,14 +374,15 @@ class MultigridPreconditioner:
                 stencils[lvl] = st if sd_l is None else st.to(sd_l)
         return stencils, fp_diags
 
-    def _masked_stencil_apply(self, stencil, mask, v):
-        """Masked action of an unfolded stencil, M C (M v).  A field in
-        another dtype than the stencil's is applied in the stencil's dtype
-        and the result cast back."""
-        if stencil.dtype != v.dtype:
-            mv = (mask * v).to(stencil.dtype)
-            return mask * self._apply_stencil(stencil, mv).to(v.dtype)
-        return mask * self._apply_stencil(stencil, mask * v)
+    def _masked_stencil_apply(self, lvl, stencil, mask, v):
+        """Masked action of the level-`lvl` unfolded stencil, M C (M v).  A
+        field in another dtype than the stencil's is applied in the
+        stencil's dtype and the result cast back."""
+        with span(f"mg.stencil.{lvl}"):
+            if stencil.dtype != v.dtype:
+                mv = (mask * v).to(stencil.dtype)
+                return mask * self._apply_stencil(stencil, mv).to(v.dtype)
+            return mask * self._apply_stencil(stencil, mask * v)
 
     # The cycle's grid operations are methods so that the sharded hierarchy
     # can run them with a halo on each shard's block.
@@ -399,7 +401,7 @@ class MultigridPreconditioner:
         """The level-`lvl` operator used during setup (power iteration)."""
         if stencils[lvl] is not None:
             return lambda v: self._masked_stencil_apply(
-                stencils[lvl], masks[lvl], v)
+                lvl, stencils[lvl], masks[lvl], v)
         op = self.ops[lvl]
         return lambda v: op.apply(v, scales[lvl], masks[lvl])
 
@@ -558,7 +560,7 @@ class MultigridPreconditioner:
         # level 1: the fresh Galerkin stencil
         diag1 = fp_diag1 if fp_diag1 is not None else stencil_diagonal(st1)
         lam1, v1 = self._estimate_lambda_max(
-            lambda v: self._masked_stencil_apply(st1, mask1, v), mask1,
+            lambda v: self._masked_stencil_apply(1, st1, mask1, v), mask1,
             diag1, power_vectors[1], self.refresh_iters)
         lam1 = headroom * lam1
 
@@ -584,7 +586,8 @@ class MultigridPreconditioner:
         """Cycle-time operator action at `lvl` (stencil or element-based)."""
         st = state["stencils"][lvl]
         if st is not None:
-            return self._masked_stencil_apply(st, state["masks"][lvl], v)
+            return self._masked_stencil_apply(lvl, st, state["masks"][lvl],
+                                              v)
         op = self.cycle_ops[lvl]
         return op.apply(v, state["scales"][lvl], state["masks"][lvl])
 
@@ -614,33 +617,41 @@ class MultigridPreconditioner:
 
     def _vcycle(self, lvl, state, r):
         if lvl == self.n_levels - 1:
-            if state["stencils"][-1] is not None:
-                # Galerkin coarsest: natural C-order flattening, BC folding
-                # already inside the dense matrix
-                r_flat = r.to(self.dtype).reshape(-1)
-                x_flat = self._cholesky_solve(state["cho"], r_flat)
-                out = x_flat.reshape(r.shape) * state["masks"][-1]
-                return out.to(r.dtype)
-            mask_flat = state["mask_flat"]
-            r_flat = r.to(self.dtype).permute(2, 1, 0, 3).reshape(-1) \
-                * mask_flat
-            x_flat = self._cholesky_solve(state["cho"], r_flat) * mask_flat
-            nnx, nny, nnz = self.ops[-1].grid.nnodes_per_axis
-            out = x_flat.reshape(nnz, nny, nnx, 3).permute(2, 1, 0, 3)
-            return out.to(r.dtype).contiguous()
-
+            with span("mg.coarsest"):
+                return self._coarsest_solve(state, r)
         mask = state["masks"][lvl]
         iters = self._level_smooth_iters(lvl)
-        x = self._smooth(lvl, state, r, None, iters)  # x0 = 0: skips 1 apply
+        with span(f"mg.smooth.{lvl}"):
+            x = self._smooth(lvl, state, r, None, iters)  # x0 = 0
         res = r - self._apply_level(lvl, state, x)
-        rc = state["masks"][lvl + 1] * self._restrict(lvl, res)
+        with span(f"mg.transfer.{lvl}"):
+            rc = state["masks"][lvl + 1] * self._restrict(lvl, res)
         xc = self._vcycle(lvl + 1, state, rc)
         if self.cycle == "w" and lvl + 1 < self.n_levels - 1:
             # W-cycle: a second coarse-grid visit on the updated residual
             rc2 = rc - self._apply_level(lvl + 1, state, xc)
             xc = xc + self._vcycle(lvl + 1, state, rc2)
-        x = x + mask * self._prolong(lvl, xc)
-        return self._smooth(lvl, state, r, x, iters)
+        with span(f"mg.transfer.{lvl}"):
+            x = x + mask * self._prolong(lvl, xc)
+        with span(f"mg.smooth.{lvl}"):
+            return self._smooth(lvl, state, r, x, iters)
+
+    def _coarsest_solve(self, state, r):
+        """The dense Cholesky solve of the coarsest level."""
+        if state["stencils"][-1] is not None:
+            # Galerkin coarsest: natural C-order flattening, BC folding
+            # already inside the dense matrix
+            r_flat = r.to(self.dtype).reshape(-1)
+            x_flat = self._cholesky_solve(state["cho"], r_flat)
+            out = x_flat.reshape(r.shape) * state["masks"][-1]
+            return out.to(r.dtype)
+        mask_flat = state["mask_flat"]
+        r_flat = r.to(self.dtype).permute(2, 1, 0, 3).reshape(-1) \
+            * mask_flat
+        x_flat = self._cholesky_solve(state["cho"], r_flat) * mask_flat
+        nnx, nny, nnz = self.ops[-1].grid.nnodes_per_axis
+        out = x_flat.reshape(nnz, nny, nnx, 3).permute(2, 1, 0, 3)
+        return out.to(r.dtype).contiguous()
 
     def _level_smooth_iters(self, lvl: int) -> int:
         if isinstance(self.smooth_iters, tuple):
@@ -652,9 +663,10 @@ class MultigridPreconditioner:
         lp = self.cycle_dtype
 
         def M(r):
-            if lp is None:
-                return self._vcycle(0, state, r)
-            return self._vcycle(0, state, r.to(lp)).to(r.dtype)
+            with span("mg.vcycle"):
+                if lp is None:
+                    return self._vcycle(0, state, r)
+                return self._vcycle(0, state, r.to(lp)).to(r.dtype)
 
         return M
 

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tracing import host_read, span, spanned, sync
+
 __all__ = ["oc_update", "sensitivity_health", "host_median_abs"]
 
 X_MIN = 1e-3          # density lower bound (OptimalityCriteria.jl:86)
@@ -63,6 +65,7 @@ def _field_sums(x, dims):
     return x.field_sums(dims)
 
 
+@spanned("oc")
 def oc_update(densities, sensitivities, volume_sensitivities,
               target_volume_fraction, total_volume, volume_weights,
               move_limit=0.2, damping=0.5):
@@ -106,11 +109,12 @@ def oc_update(densities, sensitivities, volume_sensitivities,
         return torch.clamp(q * lam ** (-damping), lo_e, hi_e)
 
     def volume_errors(lams):
-        lt = torch.as_tensor(lams, device=densities.device).view(bcast)
+        with sync("oc_lambdas"):        # a copy from pageable host memory
+            lt = torch.as_tensor(lams, device=densities.device).view(bcast)
         cand = torch.clamp(q[None] * lt ** (-damping), lo_e[None],
                            hi_e[None])
         vol = _field_sums(cand * w[None], field_dims)
-        return vol.cpu().numpy() - target_volume
+        return host_read("oc_pass", vol).numpy() - target_volume
 
     lo, hi = nd(LAMBDA_LO), nd(LAMBDA_HI)
     lam, verr = nd(0.0), nd(np.inf)
@@ -118,7 +122,8 @@ def oc_update(densities, sensitivities, volume_sensitivities,
     while it == 0 or (it < MAX_BISECTION and not done
                       and (hi - lo) > eps * hi):
         lams = _dyadic_midpoints(lo, hi, _STEPS_PER_PASS)
-        verrs = volume_errors(lams)
+        with span("oc.pass"):
+            verrs = volume_errors(lams)
         # Replay the reference halving steps: integer bracket [a, b] on the
         # 2**depth grid, midpoint index m maps to lams[m-1] / verrs[m-1].
         a, b = 0, 2 ** _STEPS_PER_PASS
@@ -139,7 +144,8 @@ def oc_update(densities, sensitivities, volume_sensitivities,
                     b = m
         ends = [lo, *lams, hi]
         lo, hi = ends[a], ends[b]
-    lam_t = torch.as_tensor(lam, device=densities.device)
+    with sync("oc_lambda"):
+        lam_t = torch.as_tensor(lam, device=densities.device)
     return candidate(lam_t), float(lam), it, float(verr)
 
 

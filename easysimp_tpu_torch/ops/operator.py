@@ -32,6 +32,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from ..tracing import spanned, sync
 from .cuda_kernels import (
     compute_dtype,
     gather_element_dofs,
@@ -123,6 +124,7 @@ class VoxelOperator:
         """K(rho) @ u with scale = E(rho), no BC masking."""
         return voxel_matvec(u, scale, self.ke)
 
+    @spanned("op.apply")
     def apply(self, u, scale, free_mask):
         """BC-masked SPD operator A u = M K (M u) on the free subspace."""
         return free_mask * self.apply_K(free_mask * u, scale)
@@ -191,6 +193,7 @@ class VoxelOperator:
               * (flat @ ke_mu).reshape(ue.shape))
         return scatter_element_dofs(fe).to(u.dtype)
 
+    @spanned("op.apply")
     def apply_lame(self, u, lam_field, mu_field, free_mask):
         """BC-masked SPD action of the variable-material operator."""
         return free_mask * self.apply_K_lame(free_mask * u, lam_field,
@@ -273,6 +276,7 @@ class UnstructuredOperator:
         _, q = self.apply_elements(u)
         return self.scatter_dofs(q * scale[:, None])
 
+    @spanned("op.apply")
     def apply(self, u, scale, free_mask):
         """BC-masked SPD operator A u = M K (M u) on the free subspace."""
         return free_mask * self.apply_K(free_mask * u, scale)
@@ -301,7 +305,8 @@ class UnstructuredOperator:
         B = B * m[:, :, None] * m[:, None, :]
         B = B + (1.0 - m)[:, :, None] * torch.eye(
             3, dtype=B.dtype, device=B.device)
-        return torch.linalg.inv(B)
+        with sync("block_jacobi_inv"):  # linalg.inv reads its status back
+            return torch.linalg.inv(B)
 
     def apply_block_jacobi(self, Binv, r):
         """M^-1 r with the inverted nodal blocks; r flat (3*n_nodes,)."""
@@ -344,6 +349,7 @@ class UnstructuredOperator:
         return self.scatter_dofs(lam_field[:, None] * ql
                                  + mu_field[:, None] * qm)
 
+    @spanned("op.apply")
     def apply_lame(self, u, lam_field, mu_field, free_mask):
         """BC-masked SPD action of the variable-material operator."""
         return free_mask * self.apply_K_lame(free_mask * u, lam_field,

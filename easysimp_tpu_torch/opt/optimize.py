@@ -79,6 +79,7 @@ from ..parallel.sharded_step import material_derivative
 from ..parallel.sharding import mesh_device
 from ..params import OptimizationParameters, OptimizationResult
 from ..stress import voxel_stresses
+from ..tracing import count, span
 from ..utils.terminal import (
     print_data,
     print_info,
@@ -336,16 +337,19 @@ def build_voxel_step(grid, loads, boundary_conditions,
         return phys, sol, energy, volume
 
     def step(design, u_prev, state, recycle=None, rtol=None) -> StepOutput:
+        count("steps")
         phys, sol, energy, volume = forward(design, u_prev, state, recycle,
                                             rtol)
-        if material_model is None:
-            sens = op.compliance_sensitivities(sol.u, phys)
-        else:
-            # the exact material derivative by one elementwise jvp: dc/drho
-            # = -(lam'(rho) u_e^T ke_lam u_e + mu'(rho) u_e^T ke_mu u_e)
-            dlam, dmu = material_derivative(material_model, phys)
-            wl, wm = op.element_energies_lame(sol.u)
-            sens = -(dlam * wl + dmu * wm)
+        with span("sens"):
+            if material_model is None:
+                sens = op.compliance_sensitivities(sol.u, phys)
+            else:
+                # the exact material derivative by one elementwise jvp:
+                # dc/drho = -(lam'(rho) u_e^T ke_lam u_e
+                #             + mu'(rho) u_e^T ke_mu u_e)
+                dlam, dmu = material_derivative(material_model, phys)
+                wl, wm = op.element_energies_lame(sol.u)
+                sens = -(dlam * wl + dmu * wm)
         if use_density_filter:
             fsens = filt.chain_rule(sens)
         else:
@@ -370,10 +374,11 @@ def build_voxel_step(grid, loads, boundary_conditions,
         """Preconditioner setup on the design's moduli: full, or
         multigrid's light one on top of prev_state.  Returns (state, new
         power vectors)."""
-        scale = precond_scale(physical(design))
-        if prev_state is None:
-            return precond.setup(scale, free_mask, pvecs)
-        return precond.setup_light(scale, free_mask, pvecs, prev_state)
+        with span("setup.full" if prev_state is None else "setup.light"):
+            scale = precond_scale(physical(design))
+            if prev_state is None:
+                return precond.setup(scale, free_mask, pvecs)
+            return precond.setup_light(scale, free_mask, pvecs, prev_state)
 
     def power_init(design):
         """The one-time cold lambda_max estimation on the initial design."""

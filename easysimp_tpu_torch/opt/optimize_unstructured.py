@@ -44,6 +44,7 @@ from ..ops.operator import UnstructuredOperator
 from ..params import OptimizationParameters, OptimizationResult
 from ..parallel.sharded_step import material_derivative
 from ..stress import unstructured_stresses
+from ..tracing import count, span
 from ..utils.terminal import (
     print_data,
     print_info,
@@ -256,14 +257,16 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
     def update_core(design, phys, u):
         """Sensitivities -> filter -> OC -> convergence metrics (the
         post-solve half of the iteration)."""
-        if material_model is None:
-            sens = op.compliance_sensitivities(u, phys)
-        else:
-            # exact material derivative via one elementwise jvp: dc/drho =
-            # -(lam'(rho) u_e^T ke_lam u_e + mu'(rho) u_e^T ke_mu u_e)
-            dlam, dmu = material_derivative(material_model, phys)
-            wl, wm = op.element_energies_lame(u)
-            sens = -(dlam * wl + dmu * wm)
+        with span("sens"):
+            if material_model is None:
+                sens = op.compliance_sensitivities(u, phys)
+            else:
+                # exact material derivative via one elementwise jvp:
+                # dc/drho = -(lam'(rho) u_e^T ke_lam u_e
+                #             + mu'(rho) u_e^T ke_mu u_e)
+                dlam, dmu = material_derivative(material_model, phys)
+                wl, wm = op.element_energies_lame(u)
+                sens = -(dlam * wl + dmu * wm)
         if use_density_filter:
             fsens = filt.chain_rule(sens)
         else:
@@ -282,6 +285,7 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
                 bisect_verr, frac_neg, max_abs, fsens)
 
     def step(design, u_prev, recycle=None, rtol=None):
+        count("steps")
         phys, sol, energy, volume = forward(design, u_prev, recycle=recycle,
                                             rtol=rtol)
         u = sol.u

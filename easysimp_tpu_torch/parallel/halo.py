@@ -33,11 +33,13 @@ from ..grids import VoxelGrid
 from ..loads import voxel_body_force
 from ..ops.cuda_kernels import voxel_energies, voxel_matvec
 from ..ops.operator import VoxelOperator
+from ..tracing import spanned
 from .sharding import _RANGES, _SPATIAL, GridLayout, ShardedField
 
 __all__ = ["extend", "own", "HaloVoxelOperator"]
 
 
+@spanned("halo.extend")
 def extend(field: ShardedField, lo, hi, zero_fill=False):
     """Each shard's block extended by lo[a] planes below and hi[a] above
     along grid axis a, clipped to the grid (zero-filled to the full width
@@ -205,6 +207,7 @@ class HaloVoxelOperator:
         return self.nodes_from_nodes(
             lambda ub, sb, dev: voxel_matvec(ub, sb, self._ke[dev]), u, scale)
 
+    @spanned("op.apply")
     def apply(self, u, scale, free_mask):
         return free_mask * self.apply_K(free_mask * u, scale)
 
@@ -215,6 +218,7 @@ class HaloVoxelOperator:
             return voxel_matvec(ub, lb, kl) + voxel_matvec(ub, mb, km)
         return self.nodes_from_nodes(fn, u, lam_field, mu_field)
 
+    @spanned("op.apply")
     def apply_lame(self, u, lam_field, mu_field, free_mask):
         return free_mask * self.apply_K_lame(free_mask * u, lam_field,
                                              mu_field)
