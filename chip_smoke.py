@@ -4,7 +4,9 @@
 
 Phases, each of which asserts and prints a line:
   1. card:    the `nvidia-smi` name and power limit;
-  2. build:   the voxel kernels, from easysimp_tpu_torch/csrc, with nvcc;
+  2. build:   the two kernel libraries, each from its own source in
+              easysimp_tpu_torch/csrc (voxel_kernels.cu, element_apply.cu),
+              with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
               37x19x11, 128^3 and the thin ragged grids 1x2x3 and 33x1x65,
               in float64, float32 and bfloat16; two launches on the same
@@ -75,8 +77,8 @@ Phases, each of which asserts and prints a line:
               exported with export_results_vtu (seconds, bytes) and read
               back, and one checkpoint of the main-mg state saved and
               loaded (seconds, bytes).
- 13. unstructured-ops: the unstructured path's modules (library tensor ops,
-              no hand kernel: the reference runs them outside Pallas) on
+ 13. unstructured-ops: the unstructured path's modules (library tensor ops
+              and the element_apply kernel) on
               `tet_mesh_from_grid` of 12x6x6 in float64 and float32: the
               operator, the neighbour-list filter, the AMG setup and one
               V-cycle on the card against the same objects on the CPU
@@ -92,7 +94,17 @@ Phases, each of which asserts and prints a line:
               seconds; one operator apply and one V-cycle as CUDA-graph
               replays (event-timed if they do not capture); energies
               finite and falling, volume fraction 0.3, CG < 2000; the two
-              voxel kernels launch no time on this path; then the same
+              voxel kernels launch no time on this path, element_apply
+              launches once per operator apply and per element-energy call
+              of the run (float32, counted); by part, the element kernel
+              and the fixed-order sum; element_apply against its plain
+              version on the card at 12x6x6 tets, the run's 44^3 x 6 tets
+              and a distorted ragged 21x13x11 hex8 mesh, in float64 (1e-12
+              of max|out|), float32 (1e-5) and bfloat16 (2e-2), scaled and
+              masked as the apply calls it and unscaled as the energies
+              call it, two launches bitwise equal; at 44^3 float32 the
+              kernel, its plain version and the torch.bmm it replaced
+              (its yardstick) timed beside its byte bound; then the same
               composition at 16^3, 24^3 and 32^3 for the CG count's growth
               with the size;
  15. e2e-unstructured: 12x6x6 tets, 6 iterations on the card against the
@@ -141,7 +153,8 @@ Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `bound_ms` in the kernels line is the least time the card could take for
-the kernel's work at 128^3 float32: the larger of its bytes (each input read
+the kernel's work at 128^3 float32 (element_apply: 44^3 x 6 tets float32,
+bound by its bytes): the larger of its bytes (each input read
 once, the output written once) at 3.35 TB/s and its operations at the peak
 rates: the element products at the cheapest split that keeps float32
 accuracy (float32 storage: three TF32 products of 2 x 576 flops per element
@@ -150,10 +163,10 @@ split into three bfloat16 pieces, three bfloat16 products at 989 TFLOP/s)
 plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
 launches are those of the main-mg run; `launches_lame` those of one
 main-lame run (5 iterations with the SIMP closure);
-`launches_unstructured` those of the main-unstructured run (0: no TPU
-kernel lies on that path); `launches_sharded` those of the two
-main-sharded runs together; `launches_bench` those of the bench's 128^3
-trajectory (prelude included).
+`launches_unstructured` those of the main-unstructured run (the voxel
+kernels 0: no TPU kernel lies on that path); `launches_sharded` those of
+the two main-sharded runs together; `launches_bench` those of the bench's
+128^3 trajectory (prelude included).
 
 Exits non-zero, printing no result, when no CUDA device is available or the
 package is missing.
@@ -175,10 +188,15 @@ import time
 import numpy as np
 import torch
 
-KERNEL_SOURCE = "easysimp_tpu_torch/csrc/voxel_kernels.cu"
+SOURCES = {
+    "voxel_matvec": "easysimp_tpu_torch/csrc/voxel_kernels.cu",
+    "voxel_energies": "easysimp_tpu_torch/csrc/voxel_kernels.cu",
+    "element_apply": "easysimp_tpu_torch/csrc/element_apply.cu",
+}
 REPLACES = {
     "voxel_matvec": "easysimp_tpu/ops/pallas_kernels.py:183",
     "voxel_energies": "easysimp_tpu/ops/pallas_kernels.py:345",
+    "element_apply": None,   # XLA's einsum in the JAX package
 }
 TIMING_RUNS = 30
 GRAPH_CALLS = 10
@@ -189,7 +207,7 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 
-KERNELS = ("voxel_matvec", "voxel_energies")
+KERNELS = ("voxel_matvec", "voxel_energies", "element_apply")
 STORAGE = (torch.float64, torch.float32, torch.bfloat16)
 
 
@@ -521,7 +539,8 @@ def run_main_path(pt, ck):
     assert res.densities.shape == (grid.n_cells,)
     assert np.all(np.isfinite(res.densities))
     assert np.all(np.isfinite(res.displacements))
-    assert all(n > 0 for n in launches.values()), launches
+    assert launches["voxel_matvec"] > 0 and launches["voxel_energies"] > 0 \
+        and launches["element_apply"] == 0, launches
     return launches
 
 
@@ -1299,10 +1318,119 @@ def replay_or_event_ms(fn):
         return interleaved_ms([fn], graph=False)[0], "CUDA events"
 
 
+@contextlib.contextmanager
+def counted_calls(cls, names):
+    """Counts the calls of the methods `names` of `cls` while inside."""
+    counts = dict.fromkeys(names, 0)
+    saved = {name: cls.__dict__[name] for name in names}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(cls, name, counting(name, saved[name]))
+    try:
+        yield counts
+    finally:
+        for name in names:
+            setattr(cls, name, saved[name])
+
+
+def element_cases(pt, op):
+    """(label, ke in float64, conn, n_dofs) on the card: 12x6x6 tets, the
+    main-unstructured operator's 44^3 x 6 tets, and a ragged distorted
+    hex8 mesh (21x13x11 cells, a partial last block)."""
+    from easysimp_tpu_torch.ops.elements import element_stiffness_batch_np
+
+    small = pt.tet_mesh_from_grid(pt.generate_grid((12, 6, 6)))
+    grid = pt.generate_grid((21, 13, 11))
+    coords = grid.node_coords + np.random.default_rng(3).uniform(
+        -0.15, 0.15, grid.node_coords.shape)
+    cases = [("12x6x6 tets", small.node_coords, small.connectivity,
+              small.n_nodes),
+             ("21x13x11 hex8", coords, grid.hex_connectivity,
+              grid.n_nodes)]
+    out = []
+    for label, xyz, conn, n_nodes in cases:
+        ke, _ = element_stiffness_batch_np(xyz[conn], E=1.0, nu=0.3)
+        out.append((label, torch.as_tensor(ke, device="cuda"),
+                    torch.as_tensor(np.asarray(conn, np.int64),
+                                    device="cuda"), 3 * n_nodes))
+    out.insert(1, (f"{op.conn.shape[0]} tets", op.ke.double(),
+                   op.conn, op.n_dofs))
+    return out
+
+
+def check_element_apply(pt, ck, op):
+    """element_apply against its plain version on the card: scaled and
+    masked as the apply calls it, and unscaled as the energies call it;
+    float64 1e-12, float32 1e-5, bfloat16 2e-2 of max|out|; two launches
+    bitwise equal."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, ke64, conn, n_dofs in element_cases(pt, op):
+        u64 = torch.randn(n_dofs, generator=gen, dtype=torch.float64,
+                          device="cuda")
+        s64 = 0.05 + 0.95 * torch.rand(conn.shape[0], generator=gen,
+                                       dtype=torch.float64, device="cuda")
+        m64 = (torch.rand(n_dofs, generator=gen, device="cuda")
+               > 0.1).double()
+        for dtype, t in tol.items():
+            ke, u, s, m = (x.to(dtype) for x in (ke64, u64, s64, m64))
+            for how, args in (("scaled, masked", (s, m)),
+                              ("unscaled", (None, None))):
+                got = ck.element_apply(u, conn, ke, *args)
+                again = ck.element_apply(u, conn, ke, *args)
+                torch.cuda.synchronize()
+                want = ck.element_apply_plain(u, conn, ke, *args)
+                same = torch.equal(got, again)
+                ok, err, ref = agree(got, want, "of max|out|", t)
+                ok = ok and bool(torch.all(got[-1] == 0))
+                phase("main-unstructured", f"  element_apply {label} "
+                      f"{str(dtype)[6:]} {how}: max_abs_err {err:.3e} "
+                      f"(max|out| {ref:.3e}, tol {t:g} of max|out|), two "
+                      f"launches bitwise equal: {same} "
+                      f"{'ok' if ok and same else 'FAIL'}")
+                assert ok, f"element_apply {label} {dtype} {how}"
+                assert same, "element_apply is not deterministic"
+            del ke, u, s, m
+        torch.cuda.empty_cache()
+
+
+def time_element_apply(ck, op, r, scale, mask):
+    """The element kernel at the main path's shape, as the apply calls it,
+    beside the torch.bmm it replaced (its yardstick) and its plain version,
+    with its bound: every byte it reads (ke, the int64 connectivity, scale,
+    the vector and the mask) and writes (the padded rows) once."""
+    out = ck.element_apply(r, op.conn, op.ke, scale, mask)
+    ue = op.gather(r)
+    ms, bmm_ms = interleaved_ms([
+        lambda: ck.element_apply(r, op.conn, op.ke, scale, mask),
+        lambda: torch.bmm(op.ke, ue.unsqueeze(-1))])
+    plain_ms, = interleaved_ms([
+        lambda: ck.element_apply_plain(r, op.conn, op.ke, scale, mask)])
+    nbytes = (op.ke.nbytes + op.conn.nbytes + scale.nbytes + r.nbytes
+              + mask.nbytes + out.nbytes)
+    E, d = op.ke.shape[:2]
+    b_ms, b_by = bound(nbytes, 0, 2 * d * d * E + d * E)
+    phase("main-unstructured", f"  element_apply {E} tets float32: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm alone "
+          f"{bmm_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f}% of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=bmm_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes)
+
+
 def run_main_unstructured(pt, ck, n=44, iterations=5):
     """Phase 14: the unstructured main path on the card, as a user runs
     it, then once more with a synchronising timer around each AMG setup and
     each CG solve."""
+    from easysimp_tpu_torch.ops.operator import UnstructuredOperator
+    from simpbench.program_trace import unstructured_apply_bytes
+
     nels = (n, n, n)
     mesh, loads, bcs = tet_cantilever(pt, nels)
     params = unstructured_params(pt, iterations)
@@ -1311,12 +1439,14 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with patched_unstructured_step(first):
+    with patched_unstructured_step(first), counted_calls(
+            UnstructuredOperator,
+            ("apply", "element_energies_unit")) as calls:
         res = pt.simp_optimize(mesh, loads, bcs, params)  # device="cuda"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches, _ = launches_since(ck, before)
+    launches, by_dtype = launches_since(ck, before)
     us = first["us"]
     assert us.device.type == "cuda" and us.dtype == torch.float32
     parts = us.build_seconds
@@ -1354,7 +1484,9 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
           f"seconds/iteration {fmt(timed_res.iteration_seconds)}, CG "
           f"{timed_res.cg_iterations_history}")
     phase("main-unstructured", f"  energy {res.energy_history}, volume "
-          f"fraction {vol_fracs}, voxel kernel launches {launches}")
+          f"fraction {vol_fracs}, kernel launches {dtype_names(by_dtype)} "
+          f"against {calls['apply']} operator applies and "
+          f"{calls['element_energies_unit']} element-energy calls")
 
     # one operator apply, one V-cycle and one AMG setup on the final design
     op, mask = us.op, None
@@ -1372,26 +1504,27 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     same = torch.equal(A(r), A(r)) and torch.equal(M(r), M(r))
     apply_ms, how_a = replay_or_event_ms(lambda: A(r))
     cycle_ms, how_m = replay_or_event_ms(lambda: M(r))
-    # the apply by part: gather, batched element products, fixed-order sum
-    ue, q = op.apply_elements(r)
-    qs = q * scale[:, None]
-    gather_ms, bmm_ms, sum_ms = interleaved_ms([
-        lambda: r[op.dofmap],
-        lambda: torch.bmm(op.ke, ue.unsqueeze(-1)),
-        lambda: op.scatter_dofs(qs)])
+    # the apply by part: the element kernel (masked, scaled), the
+    # fixed-order sum into the dofs
+    padded = op.element_products(r, scale, mask=mask)
+    kernel_ms, sum_ms = interleaved_ms([
+        lambda: op.element_products(r, scale, mask=mask),
+        lambda: op.sum_corners(padded)])
+    element = time_element_apply(ck, op, r, scale, mask)
     inv_ms, = interleaved_ms(
         [lambda: op.block_diagonal_inverse(scale, mask)], graph=False)
     setup_ms, = interleaved_ms([lambda: amg.setup(scale, mask)],
                                graph=False)
-    nbytes = (op.ke.nbytes + op.dofmap.nbytes + scale.nbytes
-              + 3 * r.nbytes)
+    nbytes = unstructured_apply_bytes(mesh.n_cells, mesh.n_dofs)
     phase("main-unstructured", f"  device time on the final design: one "
-          f"operator apply {apply_ms:.4f} ms ({how_a}; its bytes, "
-          f"{nbytes / 1e6:.0f} MB of element matrices, dof map and "
-          f"vectors, take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
-          f"3.35 TB/s; by part: gather {gather_ms:.4f}, batched 12x12 "
-          f"products (bmm) {bmm_ms:.4f}, fixed-order sum into the dofs "
-          f"{sum_ms:.4f} ms), one V-cycle {cycle_ms:.4f} ms ({how_m}), one "
+          f"operator apply {apply_ms:.4f} ms ({how_a}; its bytes as the "
+          f"benchmark's element_apply_roofline counts them, "
+          f"{nbytes / 1e6:.1f} MB, take "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, "
+          f"{100 * nbytes / HBM_BYTES_PER_S * 1e3 / apply_ms:.1f}% of "
+          f"bound; by part: element kernel {kernel_ms:.4f}, fixed-order sum "
+          f"into the dofs {sum_ms:.4f} ms), one V-cycle {cycle_ms:.4f} ms "
+          f"({how_m}), one "
           f"AMG setup {setup_ms:.3f} ms and one batched 3x3 inversion of "
           f"{mesh.n_nodes} blocks with its assembly {inv_ms:.3f} ms (CUDA "
           f"events); applies and V-cycles bitwise equal on repeat: {same}; "
@@ -1410,7 +1543,12 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     assert res.densities.shape == (mesh.n_cells,)
     assert all(abs(a - b) <= 5e-3 * abs(b) for a, b in
                zip(timed_res.energy_history, res.energy_history))
-    assert launches == {"voxel_matvec": 0, "voxel_energies": 0}, launches
+    assert launches["voxel_matvec"] == launches["voxel_energies"] == 0, \
+        launches
+    assert by_dtype["element_apply"] == {
+        torch.float32: calls["apply"] + calls["element_energies_unit"]}, \
+        (by_dtype, calls)
+    check_element_apply(pt, ck, op)
     del state, again, first, second
     torch.cuda.empty_cache()
     # the same composition on smaller meshes: how the CG count grows with
@@ -1422,7 +1560,7 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
               f"seconds/iteration {fmt(small.iteration_seconds)}")
         assert all(c < params.cg_maxiter
                    for c in small.cg_iterations_history)
-    return launches
+    return launches, element
 
 
 def run_e2e_unstructured(pt, ck):
@@ -1608,7 +1746,7 @@ def run_main_sharded(pt, ck, mg_res):
     ref_e = mg_res.energy_history[:5]
     ref_cg = mg_res.cg_iterations_history[:5]
     ref_s = float(np.median(mg_res.iteration_seconds[:5]))
-    launches = {"voxel_matvec": 0, "voxel_energies": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     for shape in [(4, 1, 1), (2, 2, 2)]:
         n = int(np.prod(shape))
         captured = {}
@@ -1647,7 +1785,7 @@ def run_main_sharded(pt, ck, mg_res):
         ok = (len(res.energy_history) == 5 and rel <= 5e-3 and all(
             abs(a - b) <= 2 for a, b in zip(res.cg_iterations_history,
                                             ref_cg))
-              and all(v > 0 for v in run.values()))
+              and run["voxel_matvec"] > 0 and run["voxel_energies"] > 0)
         fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"  # noqa
         phase("sharded", f"(c) main-sharded mesh {shape} on "
               f"{[str(d) for d in mesh.devices.flat]}: seconds/iteration "
@@ -1876,12 +2014,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
-    ck.build_kernels()
-    ptxas = [ln.strip() for ln in ck.build_info["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    phase("build", f"{time.perf_counter() - t0:.2f} s -> "
-          f"{ck.build_info['path']}; ptxas: {ptxas}")
+    for name, build in (("voxel_kernels", ck.build_kernels),
+                        ("element_apply", ck.build_element_kernels)):
+        t0 = time.perf_counter()
+        build()
+        info = ck.build_info[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        phase("build", f"{time.perf_counter() - t0:.2f} s -> "
+              f"{info['path']}; ptxas: {ptxas}")
 
     timing = check_kernels(pt, ck)
     timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
@@ -1894,12 +2035,12 @@ def main() -> int:
     run_continuation(pt, ck, res_mg)
     check_io(pt, ck, grid_mg, res_mg)
     check_unstructured_ops(pt, ck)
-    launches_un = run_main_unstructured(pt, ck)
+    launches_un, timing["element_apply"] = run_main_unstructured(pt, ck)
     run_e2e_unstructured(pt, ck)
     launches_sh = run_sharded(pt, ck, res_mg)
     launches_bench = run_bench(pt, ck, card.strip().splitlines()[0])
     kernels = [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "launches_lame": launches_lame[name],
         "launches_unstructured": launches_un[name],

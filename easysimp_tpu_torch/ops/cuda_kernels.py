@@ -1,7 +1,7 @@
-"""The voxel operator's two hand-written CUDA kernels, their plain PyTorch
-versions and their build.
+"""The port's hand-written CUDA kernels, their plain PyTorch versions and
+their builds.
 
-Counterpart of easysimp_tpu/ops/pallas_kernels.py:
+Counterparts of easysimp_tpu/ops/pallas_kernels.py:
 
   voxel_matvec    replaces `_kernel` (make_pallas_matvec,
                   easysimp_tpu/ops/pallas_kernels.py:183-342): the fused SIMP
@@ -10,24 +10,36 @@ Counterpart of easysimp_tpu/ops/pallas_kernels.py:
                   easysimp_tpu/ops/pallas_kernels.py:345-430): the per-element
                   quadratic u_e^T ke u_e.
 
-Both kernels are CUDA C++ for sm_90a in `csrc/voxel_kernels.cu`; the source
-says what bounds each on an H100 and what its design does about it.  For
-float32 and bfloat16 storage they run the element product on the tensor
+and one kernel that replaces no Pallas kernel:
+
+  element_apply   the unstructured operator's element product s_e ke_e u_e
+                  with its own d x d matrix per element (tet4 / hex8 meshes),
+                  which the JAX package leaves to XLA's einsum; the port's
+                  gather -> torch.bmm -> scale streamed the matrices at a
+                  tenth of the card's bandwidth.
+
+The voxel kernels are CUDA C++ for sm_90a in `csrc/voxel_kernels.cu`, the
+element kernel in `csrc/element_apply.cu`; each source says what bounds its
+kernels on an H100 and what their design does about it.  For float32 and
+bfloat16 storage the voxel kernels run the element product on the tensor
 cores in 3xTF32 (`tf32_round` below states that arithmetic in PyTorch); for
-float64 they are simple kernels on the FP64 CUDA cores.  They are built at
-first use with `nvcc` into a shared library with a plain C interface, under
-`_build/` keyed by a hash of the sources, and loaded with ctypes.
+float64 they are simple kernels on the FP64 CUDA cores.  The element kernel
+streams its matrices through shared memory and sums on the CUDA cores.
+Each source file is built at first use with `nvcc` into its own shared
+library with a plain C interface, under `_build/` keyed by a hash of that
+source alone (`library_path`), and loaded with ctypes.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor takes the
-plain version (the reference XLA path's gather -> (N,24)@(24,24) ->
-scatter-add, written in PyTorch), a CUDA tensor launches the kernel or
-raises.  There is no fallback: a missing `nvcc`, a failed build or a refused
-launch raises.  Each launch adds one to the port's counter
-`launch.<kernel>.<storage dtype>` (`tracing.counters()`, for example
-`launch.voxel_matvec.bfloat16`); `launches` sums them.
+plain version (the reference XLA path's gather -> product -> scatter-add,
+written in PyTorch), a CUDA tensor launches the kernel or raises.  There is
+no fallback: a missing `nvcc`, a failed build or a refused launch raises.
+Each launch adds one to the port's counter `launch.<kernel>.<storage dtype>`
+(`tracing.counters()`, for example `launch.voxel_matvec.bfloat16`);
+`launches` sums them.
 
-bf16 storage computes in fp32, as the Pallas kernels do: the wrappers take
-`ke` in the compute dtype (float64 for float64 storage, float32 otherwise).
+bf16 storage computes in fp32, as the Pallas kernels do: the voxel wrappers
+take `ke` in the compute dtype (float64 for float64 storage, float32
+otherwise); the element kernel reads its matrices in the storage dtype.
 """
 
 from __future__ import annotations
@@ -54,8 +66,12 @@ __all__ = [
     "voxel_energies",
     "voxel_energies_plain",
     "voxel_matvec_simple_f32",
+    "element_apply",
+    "element_apply_plain",
     "tf32_round",
     "build_kernels",
+    "build_element_kernels",
+    "library_path",
     "launches",
 ]
 
@@ -64,19 +80,23 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 _COUNTER = {k: {dt: f"launch.{k}.{str(dt)[6:]}" for dt in _SUFFIX}
-            for k in ("voxel_matvec", "voxel_energies")}
+            for k in ("voxel_matvec", "voxel_energies", "element_apply")}
+_LIBRARIES = {"voxel_kernels": ("voxel_kernels.cu",),
+              "element_apply": ("element_apply.cu",)}
+_ELEMENT_WIDTHS = (12, 24)   # dofs per element: tet4, hex8
 
 
 def launches(kernel, dtype=None):
-    """Launches of `kernel` ("voxel_matvec" or "voxel_energies") so far,
-    of one storage dtype or of all."""
+    """Launches of `kernel` ("voxel_matvec", "voxel_energies" or
+    "element_apply") so far, of one storage dtype or of all."""
     c = counters()
     return sum(c.get(name, 0) for dt, name in _COUNTER[kernel].items()
                if dtype is None or dt == dtype)
 
 
-_lib = None          # the loaded shared library (built at first CUDA use)
-build_info: dict = {}  # path, seconds and compiler output of the last build
+_lib = None           # the loaded libraries (each built at first CUDA use)
+_element_lib = None
+build_info: dict = {}  # per library: path, seconds and compiler output
 
 
 def compute_dtype(storage_dtype: torch.dtype) -> torch.dtype:
@@ -122,6 +142,18 @@ def voxel_energies_plain(u, ke):
     return (ue * q).sum(dim=-1).to(u.dtype)
 
 
+def element_apply_plain(u, conn, ke, scale=None, mask=None):
+    """`element_apply` in plain tensor code on any device: mask, gather,
+    batched ke_e @ u_e (`torch.bmm`), scale, then the zero row appended."""
+    if mask is not None:
+        u = mask * u
+    ue = u.reshape(-1, 3)[conn].reshape(ke.shape[:2])
+    q = torch.bmm(ke, ue.unsqueeze(-1)).squeeze(-1)
+    if scale is not None:
+        q = q * scale[:, None]
+    return torch.cat([q.reshape(-1, 3), q.new_zeros((1, 3))])
+
+
 def tf32_round(x):
     """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
     zero, as `cvt.rna.tf32.f32` rounds; returned as float32.
@@ -157,21 +189,22 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernels():
-    """Build (if needed) and load the kernels' shared library.
-
-    The library goes to `_build/voxel_kernels_<hash>.so`, keyed by the
-    sources, so an edited source is rebuilt and an unchanged one reused.
-    Raises on any failure."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+def library_path(name):
+    """(sources, shared library path) of kernel library `name` ("voxel_kernels"
+    or "element_apply").  Each library is built from its own sources alone,
+    under a name keyed by their hash, so an edited source rebuilds only its
+    library and an unchanged one is reused."""
+    sources = [_CSRC / f for f in _LIBRARIES[name]]
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    so = _BUILD / f"voxel_kernels_{digest.hexdigest()[:16]}.so"
+    return sources, _BUILD / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _load(name):
+    """Build (if needed) and load library `name`; raises on any failure."""
+    sources, so = library_path(name)
     t0 = time.perf_counter()
     log = ""
     if not so.exists():
@@ -179,14 +212,25 @@ def build_kernels():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp),
-               *[str(s) for s in sources if s.suffix == ".cu"]]
+               "-Xptxas", "-v", "-o", str(tmp), *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
+    build_info[name] = dict(path=str(so), seconds=time.perf_counter() - t0,
+                            log=log)
+    return lib
+
+
+def build_kernels():
+    """Build (if needed) and load the voxel kernels' shared library,
+    `_build/voxel_kernels_<hash>.so`.  Raises on any failure."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _load("voxel_kernels")
     ptr = ctypes.c_void_p
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"voxel_matvec_{sfx}")
@@ -199,9 +243,24 @@ def build_kernels():
         fn.restype = ctypes.c_int
     lib.voxel_matvec_simple_f32.argtypes = lib.voxel_matvec_f32.argtypes
     lib.voxel_matvec_simple_f32.restype = ctypes.c_int
-    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
-                      log=log)
     _lib = lib
+    return lib
+
+
+def build_element_kernels():
+    """Build (if needed) and load the element kernel's shared library,
+    `_build/element_apply_<hash>.so`.  Raises on any failure."""
+    global _element_lib
+    if _element_lib is not None:
+        return _element_lib
+    lib = _load("element_apply")
+    ptr = ctypes.c_void_p
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"element_apply_{sfx}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                       ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
+    _element_lib = lib
     return lib
 
 
@@ -301,4 +360,57 @@ def voxel_energies(u, ke):
             u.data_ptr(), ke.data_ptr(), out.data_ptr(), nx, ny, nz, stream)
     _raise_on(err, "voxel_energies")
     count(_COUNTER["voxel_energies"][u.dtype])
+    return out
+
+
+def _check_elements(u, conn, ke, scale, mask):
+    """Checks `element_apply`'s arguments; returns (n_elem, d)."""
+    if u.dtype not in _SUFFIX:
+        raise TypeError(f"unsupported storage dtype {u.dtype}; expected one "
+                        f"of {list(_SUFFIX)}")
+    if u.dim() != 1 or u.numel() % 3:
+        raise ValueError(f"u must be a flat (3 * n_nodes,) dof vector, got "
+                         f"{tuple(u.shape)}")
+    if ke.dim() != 3 or ke.shape[1] != ke.shape[2] \
+            or ke.shape[1] not in _ELEMENT_WIDTHS:
+        raise ValueError(f"ke must be (n_elem, d, d) with d in "
+                         f"{_ELEMENT_WIDTHS}, got {tuple(ke.shape)}")
+    E, d = ke.shape[:2]
+    for name, t, dtype, shape in (
+            ("u", u, u.dtype, u.shape), ("ke", ke, u.dtype, ke.shape),
+            ("conn", conn, torch.int64, (E, d // 3)),
+            ("scale", scale, u.dtype, (E,)), ("mask", mask, u.dtype, u.shape)):
+        if t is not None:
+            _check_cuda(name, t, dtype, shape, u.device)
+    return E, d
+
+
+def element_apply(u, conn, ke, scale=None, mask=None):
+    """Per-corner rows of s_e ke_e (m u)_e for every element e, and one zero
+    row after them: (n_elem * d / 3 + 1, 3), the padded input of the
+    operator's fixed-order incidence-table sum.
+
+    u: flat (3 * n_nodes,) dof vector; conn: (n_elem, d / 3) int64 node
+    numbers (dof = 3 * node + component); ke: (n_elem, d, d) with d = 12
+    (tet4) or 24 (hex8); scale (n_elem,) and the dof mask m (like u) may be
+    None.  u, ke, scale and mask share the storage dtype; bfloat16 computes
+    in float32.  CPU tensors take `element_apply_plain`; CUDA tensors
+    launch the kernel."""
+    E, d = _check_elements(u, conn, ke, scale, mask)
+    if u.device.type == "cpu":
+        return element_apply_plain(u, conn, ke, scale, mask)
+    if u.device.type != "cuda":
+        raise ValueError(f"no element_apply for device {u.device}")
+    if ke.data_ptr() % 16:
+        raise ValueError("ke must start on a 16-byte boundary")
+    lib = build_element_kernels()
+    out = u.new_empty((E * d // 3 + 1, 3))
+    opt = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"element_apply_{_SUFFIX[u.dtype]}")(
+            u.data_ptr(), conn.data_ptr(), ke.data_ptr(), opt(scale),
+            opt(mask), out.data_ptr(), E, d, stream)
+    _raise_on(err, "element_apply")
+    count(_COUNTER["element_apply"][u.dtype])
     return out

@@ -16,13 +16,15 @@ CPU tensors to their plain versions.  So does the two-field Lamé path of a
 lam * ke_lam + mu * ke_mu, so K(lam, mu) u is two matvec launches and the
 two material-derivative quadratics are two energies launches.
 
-The unstructured operator (imported tet4/hex8 meshes) is gather -> batched
-`ke_e @ u_e` -> sum into the dofs, all in library tensor ops on the tensors'
-device, as the reference runs it outside any hand kernel.  The sum into the
-dofs is NOT a scatter-add (float atomics on CUDA would change the sum order
-from launch to launch): a host-built padded incidence table lists, for every
-node, the element slots that touch it, and the contributions are gathered
-and reduced along the table's row, in a fixed order.
+The unstructured operator (imported tet4/hex8 meshes) is the element
+product s_e ke_e u_e (gather, per-element matrix, scale: one launch of the
+hand kernel `element_apply` on CUDA tensors, its plain gather -> `bmm` ->
+scale on CPU ones) -> sum into the dofs.  The sum into the dofs is NOT a
+scatter-add (float atomics on CUDA would change the sum order from launch
+to launch): a host-built padded incidence table lists, for every node, the
+element slots that touch it, and the contributions are gathered and reduced
+along the table's row, in a fixed order.  The kernel writes the table's
+zero padding row itself.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ..tracing import spanned, sync
 from .cuda_kernels import (
     compute_dtype,
+    element_apply,
     gather_element_dofs,
     scatter_element_dofs,
     voxel_energies,
@@ -224,8 +227,8 @@ class UnstructuredOperator:
 
     Precomputes the per-element unit-modulus stiffness batch (the analogue of
     `initialize_element_cache`, FiniteElementAnalysis.jl:608-630), the
-    (n_elem, ndof_e) dof map and the node -> element-slot incidence table;
-    the matvec is gather -> batched matmul -> fixed-order sum into the
+    connectivity and the node -> element-slot incidence table; the matvec
+    is the element product (`element_apply`) -> fixed-order sum into the
     nodes.  Vectors are flat (n_dofs,) with dof = 3*node + comp.
     """
 
@@ -240,9 +243,6 @@ class UnstructuredOperator:
         self.ke = torch.as_tensor(np.asarray(ke_unit), dtype=dtype,
                                   device=self.device)        # (E, d, d)
         conn = np.asarray(connectivity, dtype=np.int64)      # (E, nn)
-        dofmap = (3 * conn[:, :, None] + np.arange(3)[None, None, :]).reshape(
-            conn.shape[0], -1)
-        self.dofmap = torch.as_tensor(dofmap, device=self.device)  # (E, d)
         self.conn = torch.as_tensor(conn, device=self.device)      # (E, nn)
         self.n_nodes = int(n_nodes)
         self.n_dofs = 3 * self.n_nodes
@@ -264,22 +264,35 @@ class UnstructuredOperator:
         """Sum element dof vectors (E, d) into a flat (n_dofs,) vector."""
         return self.scatter_nodes(fe.reshape(-1, self.nn, 3)).reshape(-1)
 
+    def gather(self, u):
+        """u_e = u at each element's dofs, (E, d)."""
+        return u.reshape(-1, 3)[self.conn].reshape(self.conn.shape[0], -1)
+
+    def element_products(self, u, scale=None, ke=None, mask=None):
+        """Per-corner rows of scale_e ke_e (mask u)_e and the zero row after
+        them, (E nn + 1, 3): the padded input of `sum_corners`.  One
+        `element_apply` launch on CUDA tensors."""
+        return element_apply(u, self.conn, self.ke if ke is None else ke,
+                             scale, mask)
+
+    def sum_corners(self, padded):
+        """Flat (n_dofs,) sums of `element_products` rows into the nodes, in
+        the fixed order of the incidence table."""
+        return padded[self.node_slots].sum(dim=1).reshape(-1)
+
     def apply_elements(self, u, ke=None):
         """(u_e, q_e = ke_e @ u_e), each (E, d)."""
-        ue = u[self.dofmap]                                  # (E, d)
-        ke = self.ke if ke is None else ke
-        q = torch.bmm(ke, ue.unsqueeze(-1)).squeeze(-1)
-        return ue, q
+        q = self.element_products(u, ke=ke)[:-1]
+        return self.gather(u), q.reshape(self.conn.shape[0], -1)
 
-    def apply_K(self, u, scale):
-        """K(rho) @ u with scale = E(rho), no BC masking."""
-        _, q = self.apply_elements(u)
-        return self.scatter_dofs(q * scale[:, None])
+    def apply_K(self, u, scale, mask=None):
+        """K(rho) @ (mask u) with scale = E(rho); the output unmasked."""
+        return self.sum_corners(self.element_products(u, scale, mask=mask))
 
     @spanned("op.apply")
     def apply(self, u, scale, free_mask):
         """BC-masked SPD operator A u = M K (M u) on the free subspace."""
-        return free_mask * self.apply_K(free_mask * u, scale)
+        return free_mask * self.apply_K(u, scale, free_mask)
 
     def diagonal(self, scale, free_mask):
         """diag(A), flat; 1.0 on constrained dofs."""
@@ -342,18 +355,18 @@ class UnstructuredOperator:
         self.ke_mu = torch.as_tensor(np.asarray(ke_mu), dtype=self.dtype,
                                      device=self.device)
 
-    def apply_K_lame(self, u, lam_field, mu_field):
-        """K(lam, mu) @ u with per-element Lamé fields (E,)."""
-        _, ql = self.apply_elements(u, self.ke_lam)
-        _, qm = self.apply_elements(u, self.ke_mu)
-        return self.scatter_dofs(lam_field[:, None] * ql
-                                 + mu_field[:, None] * qm)
+    def apply_K_lame(self, u, lam_field, mu_field, mask=None):
+        """K(lam, mu) @ (mask u) with per-element Lamé fields (E,): two
+        element products, one sum."""
+        return self.sum_corners(
+            self.element_products(u, lam_field, self.ke_lam, mask)
+            + self.element_products(u, mu_field, self.ke_mu, mask))
 
     @spanned("op.apply")
     def apply_lame(self, u, lam_field, mu_field, free_mask):
         """BC-masked SPD action of the variable-material operator."""
-        return free_mask * self.apply_K_lame(free_mask * u, lam_field,
-                                             mu_field)
+        return free_mask * self.apply_K_lame(u, lam_field, mu_field,
+                                             free_mask)
 
     def element_energies_lame(self, u):
         """(u_e^T ke_lam u_e, u_e^T ke_mu u_e) element fields, the

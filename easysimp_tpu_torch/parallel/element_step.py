@@ -5,13 +5,14 @@ optimize_unstructured.py:147-165, 192-207, where GSPMD partitions the
 element batch over a 1-axis ("e",) mesh and keeps dof vectors replicated.
 Here, over the element split of parallel/sharding.py `ElementLayout`:
 
-* per shard: the element batch (ke), connectivity and dof map, densities,
+* per shard: the element batch (ke), connectivity, densities,
   element volumes, the filter rows, and the AMG's element-indexed assembly
   inputs;
 * dof and aggregate vectors are held once, on the mesh's first device, and
   copied to a shard's device where its elements read them;
-* the operator apply is one partial per shard, through that shard's own
-  padded incidence table (ops/operator.py `padded_groups`/`group_sum`),
+* the operator apply is one partial per shard (one `element_apply`
+  launch on CUDA, or two on the Lamé path), through that shard's own
+  padded incidence table (ops/operator.py `padded_groups`),
   and the partials are added in shard order: a fixed order, no
   `index_add_` on the per-CG-iteration path;
 * the filter gathers the design onto every shard's device before its
@@ -89,6 +90,21 @@ class ElementShardedOperator(UnstructuredOperator):
                 for q, k in zip(self.parts, ke.blocks)]
         return (self._field([o[0] for o in outs]),
                 self._field([o[1] for o in outs]))
+
+    def apply_K(self, u, scale, mask=None):
+        """One partial apply per shard, through its own incidence table,
+        added in shard order on the first device."""
+        u = u if mask is None else mask * u
+        return _add_in_order([q.apply_K(u.to(q.device), s) for q, s in
+                              zip(self.parts, scale.blocks)], self.device)
+
+    def apply_K_lame(self, u, lam_field, mu_field, mask=None):
+        """`apply_K` of the two-field Lamé operator, per shard."""
+        u = u if mask is None else mask * u
+        return _add_in_order(
+            [q.apply_K_lame(u.to(q.device), lam, mu) for q, lam, mu in
+             zip(self.parts, lam_field.blocks, mu_field.blocks)],
+            self.device)
 
     def scatter_nodes(self, per_corner):
         """Per-shard sums through each shard's incidence table, added in

@@ -20,7 +20,8 @@ Spans (nested as the code nests them): `cg`, `cg.deflate`; `mg.vcycle`,
 `setup.full`, `setup.light`; `filter`; `sens`; `oc`, `oc.pass`;
 `op.apply`; `amg.setup`, `amg.vcycle`; `halo.extend`; `sync.<site>`.
 Counters: `cg.iterations`, `steps` (SIMP iterations), `sync.<site>`,
-`launch.voxel_matvec.<dtype>`, `launch.voxel_energies.<dtype>`.
+`launch.voxel_matvec.<dtype>`, `launch.voxel_energies.<dtype>`,
+`launch.element_apply.<dtype>`.
 """
 
 from __future__ import annotations

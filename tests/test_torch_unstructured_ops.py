@@ -18,6 +18,8 @@ from easysimp_tpu.stress import unstructured_stresses as stresses_r
 import easysimp_tpu_torch as pt
 from easysimp_tpu_torch import mesh as mesh_p
 from easysimp_tpu_torch import native
+from easysimp_tpu_torch import tracing
+from easysimp_tpu_torch.ops import cuda_kernels as ck
 from easysimp_tpu_torch.ops import elements as el_p
 from easysimp_tpu_torch.ops import filters as filters_p
 from easysimp_tpu_torch.ops.operator import (
@@ -140,8 +142,9 @@ def test_operator_equals_reference(kind):
     scale_p = op_p.youngs_modulus(_t(rho))
     scale_r = op_r.youngs_modulus(jnp.asarray(rho))
     _close(scale_p, scale_r)
-    np.testing.assert_array_equal(op_p.dofmap.numpy(),
-                                  np.asarray(op_r.dofmap))
+    np.testing.assert_array_equal(   # the gather of the dof numbers
+        op_p.gather(torch.arange(mesh.n_dofs)).numpy(),
+        np.asarray(op_r.dofmap))
     ue_p, q_p = op_p.apply_elements(_t(u))
     ue_r, q_r = op_r.apply_elements(jnp.asarray(u))
     _close(ue_p, ue_r)
@@ -189,6 +192,103 @@ def test_operator_lame_path_equals_reference(kind):
     for got, want in zip(op_p.element_energies_lame(_t(u)),
                          op_r.element_energies_lame(jnp.asarray(u))):
         _close(got, want, atol=1e-12)
+
+
+def _element_inputs(kind, dtype):
+    """(u, conn, ke, scale, mask) of `_mesh(kind)` in `dtype` on the CPU."""
+    mesh = _mesh(kind, pt)
+    ke, _ = el_p.element_stiffness_batch_np(
+        mesh.node_coords[mesh.connectivity], E=1.0, nu=0.3)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731
+    return (t(rng.normal(size=mesh.n_dofs)),
+            torch.as_tensor(mesh.connectivity, dtype=torch.int64), t(ke),
+            t(rng.uniform(0.05, 1.0, mesh.n_cells)),
+            t(rng.uniform(size=mesh.n_dofs) > 0.2))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["tet4", "hex8"])
+def test_element_apply_on_cpu_is_gather_bmm_scale(kind, dtype, scaled):
+    """On CPU tensors the kernel's wrapper is its plain version: the
+    operator's former gather -> bmm -> scale, bitwise, in per-corner rows
+    followed by one zero row; the mask multiplies u first; no launch is
+    counted."""
+    u, conn, ke, scale, mask = _element_inputs(kind, dtype)
+    scale = scale if scaled else None
+    E, d = ke.shape[:2]
+    dofmap = torch.as_tensor(
+        (3 * conn.numpy()[:, :, None] + np.arange(3)).reshape(E, d))
+    q = torch.bmm(ke, u[dofmap].unsqueeze(-1)).squeeze(-1)
+    if scaled:
+        q = q * scale[:, None]
+    before = tracing.counters()
+    out = ck.element_apply(u, conn, ke, scale)
+    assert out.shape == (E * d // 3 + 1, 3) and out.dtype == dtype
+    assert torch.equal(out[:-1].reshape(E, d), q)
+    assert torch.equal(out[-1], torch.zeros(3, dtype=dtype))
+    assert torch.equal(ck.element_apply(u, conn, ke, scale, mask),
+                       ck.element_apply(mask * u, conn, ke, scale))
+    assert tracing.counters() == before
+    assert ck.launches("element_apply", dtype) == before.get(
+        f"launch.element_apply.{str(dtype)[6:]}", 0)
+
+
+@pytest.mark.parametrize("case, error", [
+    ("width", ValueError), ("u_shape", ValueError), ("conn_shape", ValueError),
+    ("scale_shape", ValueError), ("ke_dtype", TypeError),
+    ("conn_dtype", TypeError), ("storage", TypeError), ("device", ValueError),
+    ("mixed_devices", ValueError)])
+def test_element_apply_rejects_bad_arguments(case, error):
+    """A wrong shape, dtype or device raises before any work."""
+    u, conn, ke, scale, mask = _element_inputs("tet4", torch.float64)
+    args = {"u": u, "conn": conn, "ke": ke, "scale": scale, "mask": mask}
+    args.update({
+        "width": {"ke": ke[:, :9, :9]},
+        "u_shape": {"u": u.reshape(-1, 3)},
+        "conn_shape": {"conn": conn[:, :3]},
+        "scale_shape": {"scale": scale[1:]},
+        "ke_dtype": {"ke": ke.float()},
+        "conn_dtype": {"conn": conn.int()},
+        "storage": {k: v.half() for k, v in args.items() if k != "conn"},
+        "device": {k: v.to("meta") for k, v in args.items()},
+        "mixed_devices": {"scale": scale.to("meta")},
+    }[case])
+    with pytest.raises(error):
+        ck.element_apply(**args)
+
+
+@pytest.mark.parametrize("name, source", [
+    ("voxel_kernels", "voxel_kernels.cu"),
+    ("element_apply", "element_apply.cu")])
+def test_each_kernel_library_builds_from_its_own_source(
+        name, source, tmp_path, monkeypatch):
+    """Each library compiles its own source alone, under a name keyed by
+    that source only: the element kernel neither enters nor re-keys the
+    voxel library (its key is the hash of voxel_kernels.cu as before)."""
+    import hashlib
+
+    commands = []
+
+    def run(cmd, **kw):
+        commands.append(cmd)
+        raise InterruptedError
+
+    monkeypatch.setattr(ck, "_BUILD", tmp_path)
+    monkeypatch.setattr(ck, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(ck.subprocess, "run", run)
+    with pytest.raises(InterruptedError):
+        ck._load(name)
+    cu = [a for a in commands[0] if a.endswith((".cu", ".cuh"))]
+    assert [a.rsplit("/", 1)[-1] for a in cu] == [source]
+    sources, so = ck.library_path(name)
+    src = ck._CSRC / source
+    key = hashlib.sha256(src.name.encode() + src.read_bytes()).hexdigest()
+    assert sources == [src] and so.name == f"{name}_{key[:16]}.so"
+    other = {"voxel_kernels": "element_apply",
+             "element_apply": "voxel_kernels"}[name]
+    assert ck.library_path(other)[1] != so
 
 
 def test_native_search_equals_ckdtree():
