@@ -4,8 +4,27 @@
 traffic mix.  The cell's own limits are in `workloads/<cell>.json`, the
 traffic mix in `traffic/<traffic>.json`, the configuration in the `file`
 that `BENCHMARK.json` gives, and each metric's reader in
-`metrics/<metric>.py`.  Adding a cell, a configuration or a metric adds
-files and entries; no file here changes.
+`metrics/<metric>.py`.  A configuration, a cell or a metric is added with
+files and entries; a kind of configuration with `systems/<kind>.py` and
+`reference/<kind>.py`.  No file here changes.
+
+A configuration states its domain's `extent`, its `supports` (each a node
+selection and the components it fixes) and its `load` (a total force split
+equally over the nodes of one selection).  A selection is one of
+
+  {"select": "plane", "point", "normal", "tolerance"}
+      the nodes with |(x - point) . n| < tolerance, n the unit normal;
+  {"select": "box", "min", "max", "tolerance"}
+      the nodes with min - tolerance <= x <= max + tolerance on each axis;
+  {"select": "circle", "center", "normal", "radius", "tolerance"}
+      the nodes on the plane through `center` (as "plane") whose distance
+      from `center` within that plane is at most radius + tolerance;
+  {"select": "closest", "point"}
+      the node nearest `point`, the first in node order on a tie.
+
+Points, corners and radii are in the domain's units; `in_grid` takes them
+to the cells of the grid a run builds, times nels / extent.  Tolerances
+are in cells.  Normals keep their direction.
 """
 
 from __future__ import annotations
@@ -13,6 +32,7 @@ from __future__ import annotations
 import copy
 import importlib
 import json
+import math
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -69,6 +89,25 @@ def load_cell(name, root=ROOT, overrides=None) -> Cell:
         chips=int(w["chips"]),
         metrics=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)])
+
+
+def in_grid(selection, config, nels):
+    """A node selection of the configuration in units of the cells of an
+    `nels` grid: points, corners and radii times nels / extent, which has
+    to be the same on every axis."""
+    extent = config["extent"]
+    ratios = [int(n) / float(e) for n, e in zip(nels, extent)]
+    if not all(math.isclose(r, ratios[0], rel_tol=1e-12) for r in ratios):
+        raise ValueError(f"a {list(nels)} grid of {extent} has cells that "
+                         f"are not cubes")
+    out = dict(selection)
+    for key in ("point", "center", "min", "max"):
+        if key in out:
+            out[key] = [float(v) * int(n) / float(e)
+                        for v, n, e in zip(out[key], nels, extent)]
+    if "radius" in out:
+        out["radius"] = float(out["radius"]) * ratios[0]
+    return out
 
 
 def reader(metric_name):

@@ -21,7 +21,8 @@ NUMBERS = ("residual", "energy_gap", "design_gap", "step_gap")
 
 def _exact(cell, rec):
     if rec["exact"] == "mesh":               # the program's tet mesh
-        coords, conn = reference.tet_mesh(cell.grid(rec["level"]))
+        coords, conn = reference.module(cell.config["kind"]).mesh(
+            cell.grid(rec["level"]))
         got_coords = np.asarray(rec["coords"], dtype=np.float64)
         got_conn = np.asarray(rec["conn"])
         if got_coords.shape != coords.shape or got_conn.shape != conn.shape:

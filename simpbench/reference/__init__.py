@@ -19,17 +19,29 @@ CG, then the same update), which the control runs in TF32.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 from .common import forcing_rtol, oc_update, pcg
-from .tet import TetProblem, tet_mesh
-from .voxel import VoxelProblem
 
-PROBLEMS = {"voxel": VoxelProblem, "tet": TetProblem}
+
+def module(kind):
+    """The reference of a kind of configuration: `reference/<kind>.py`."""
+    name = f"{__name__}.{kind}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ValueError(f"no reference for the kind {kind!r}: no module "
+                         f"{name}") from None
 
 
 def problem(config, nels, device, precision="float64"):
-    return PROBLEMS[config["kind"]](config, nels, device, precision)
+    """The configuration's plain problem on an `nels` grid: its kind's
+    `Problem`."""
+    return module(config["kind"]).Problem(config, nels, device, precision)
 
 
 def _oc(P, x, fdc):
@@ -74,4 +86,4 @@ def step(P, x, u_prev, rtol, maxiter):
     return _oc(P, x, fdc), u, energy, k, res
 
 
-__all__ = ["problem", "judge_iteration", "step", "forcing_rtol", "tet_mesh"]
+__all__ = ["module", "problem", "judge_iteration", "step", "forcing_rtol"]

@@ -1,5 +1,6 @@
-"""What the voxel and the tet reference share: the material, the OC update,
-the TF32 rounding of the control and a Jacobi-preconditioned CG.
+"""What the voxel and the tet reference share: the node lattice, the
+supports and the load, the material, the OC update, the TF32 rounding of
+the control and a Jacobi-preconditioned CG.
 
 Plain PyTorch and NumPy, written from the SIMP method's equations (Sigmund's
 99-line code and EasySIMP.jl's OptimalityCriteria.jl).  Nothing here imports
@@ -13,9 +14,65 @@ import math
 import numpy as np
 import torch
 
+from ..cells import in_grid
+
 X_MIN = 1e-3            # lower density bound of the OC update
 VOLUME_TOL = 1e-6       # absolute volume tolerance of the bisection
 MAX_BISECTION = 200
+
+
+def lattice(nels):
+    """(n_nodes, 3) float64 coordinates of the nodes of an `nels` grid of
+    unit cubes, x fastest: node i + (nx+1) (j + (ny+1) k) at (i, j, k)."""
+    nx, ny, nz = nels
+    k, j, i = np.meshgrid(np.arange(nz + 1), np.arange(ny + 1),
+                          np.arange(nx + 1), indexing="ij")
+    return np.stack([i, j, k], -1).reshape(-1, 3).astype(np.float64)
+
+
+def selected(coords, s):
+    """Boolean (n_nodes,): the nodes at `coords` that the selection `s` (in
+    cells, `cells.in_grid`) takes, by the definitions of `cells.py`."""
+    kind = s["select"]
+    if kind == "closest":
+        d = np.sqrt(((coords - np.asarray(s["point"])) ** 2).sum(1))
+        out = np.zeros(len(coords), dtype=bool)
+        out[np.argmin(d)] = True
+        return out
+    tol = s["tolerance"]
+    if kind == "box":
+        return np.all((coords >= np.asarray(s["min"]) - tol)
+                      & (coords <= np.asarray(s["max"]) + tol), axis=1)
+    if kind not in ("plane", "circle"):
+        raise ValueError(f"unknown node selection {kind!r}")
+    n = np.asarray(s["normal"], dtype=np.float64)
+    n = n / np.sqrt((n ** 2).sum())
+    v = coords - np.asarray(s["point" if kind == "plane" else "center"])
+    height = v @ n
+    on_plane = np.abs(height) < tol
+    if kind == "plane":
+        return on_plane
+    in_plane = v - height[:, None] * n
+    return on_plane & (np.sqrt((in_plane ** 2).sum(1)) <= s["radius"] + tol)
+
+
+def supports_and_load(config, coords, nels):
+    """(fixed, loaded) of the configuration's supports and load on the
+    nodes at `coords` of an `nels` grid: fixed (n_nodes, 3) boolean, the
+    components that some support fixes; loaded (n_nodes,) boolean, the
+    nodes over which the total force is split equally."""
+    def take(selection):
+        out = selected(coords, in_grid(selection, config, nels))
+        if not out.any():
+            raise ValueError(f"the selection {selection} takes no node")
+        return out
+
+    fixed = np.zeros((len(coords), 3), dtype=bool)
+    for support in config["supports"]:
+        nodes = take(support["nodes"])
+        for c in support["components"]:
+            fixed[nodes, c] = True
+    return fixed, take(config["load"]["nodes"])
 
 
 def isotropic_D(E, nu):

@@ -1,7 +1,7 @@
-"""Plain reference of the tet cantilever: a voxel grid of unit cubes, each
-split into 6 tets around its 0-6 diagonal; linear-tet stiffness, K(rho) u,
-element energies, the cone sensitivity filter over cell centroids, the load
-and the supports, written from the problem's definition.
+"""Plain reference of a tet problem: a voxel grid of unit cubes, each split
+into 6 tets around its 0-6 diagonal; linear-tet stiffness, K(rho) u,
+element energies, the cone sensitivity filter over cell centroids, and the
+configuration's supports and load, written from the problem's definition.
 
 Cells are numbered tet-type-major: cell = t * n_voxels + voxel, voxels and
 nodes x-fastest.  Fields are flat: cells (n_cells,), dofs (3 n_nodes,).
@@ -17,7 +17,8 @@ import math
 import numpy as np
 import torch
 
-from .common import dyoungs, isotropic_D, matmul, strain_B, youngs
+from .common import (dyoungs, isotropic_D, lattice, matmul, strain_B,
+                     supports_and_load, youngs)
 from .voxel import CORNERS
 
 # the 6 tets of a cube, as corner numbers of CORNERS
@@ -25,14 +26,12 @@ TETS = ((0, 1, 2, 6), (0, 2, 3, 6), (0, 3, 7, 6),
         (0, 7, 4, 6), (0, 4, 5, 6), (0, 5, 1, 6))
 
 
-def tet_mesh(nels):
+def mesh(nels):
     """(node_coords (n_nodes, 3) float64, connectivity (n_cells, 4) int64)
     of the 6-tet split of an `nels` grid of unit cubes, every tet with
     positive volume."""
     nx, ny, nz = nels
-    iz, iy, ix = np.meshgrid(np.arange(nz + 1), np.arange(ny + 1),
-                             np.arange(nx + 1), indexing="ij")
-    coords = np.stack([ix, iy, iz], -1).reshape(-1, 3).astype(np.float64)
+    coords = lattice(nels)
     cz, cy, cx = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
                              indexing="ij")
     cx, cy, cz = cx.reshape(-1), cy.reshape(-1), cz.reshape(-1)
@@ -45,9 +44,10 @@ def tet_mesh(nels):
     return coords, conn
 
 
-class TetProblem:
-    """The cantilever of `nels` cubes as tets: fixed x=0 face, the total
-    force `load` split equally over the nodes of the line x=nx, y=0."""
+class Problem:
+    """The configuration on `nels` cubes as tets: its supports fix
+    components of the nodes they select, its total force is split equally
+    over the nodes of its load's selection."""
 
     def __init__(self, config, nels, device, precision="float64"):
         self.nels = tuple(int(n) for n in nels)
@@ -56,9 +56,8 @@ class TetProblem:
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.device = torch.device(device)
         kw = dict(dtype=self.dtype, device=self.device)
-        coords, conn = tet_mesh(self.nels)
+        coords, conn = mesh(self.nels)
         self.coords, self.conn = coords, conn
-        nx, ny, nz = self.nels
         n_nodes = coords.shape[0]
         X = torch.as_tensor(coords[conn], dtype=torch.float64,
                             device=self.device)             # (E, 4, 3)
@@ -77,14 +76,13 @@ class TetProblem:
         dof = 3 * torch.as_tensor(conn, device=self.device)
         self.dofmap = (dof[:, :, None] + torch.arange(
             3, device=self.device)).reshape(-1, 12)
+        fixed, loaded = supports_and_load(config, coords, self.nels)
         self.mask = torch.ones(3 * n_nodes, **kw)
-        fixed = np.flatnonzero(np.abs(coords[:, 0]) < 1e-6)
-        self.mask.view(-1, 3)[torch.as_tensor(fixed, device=self.device)] = 0
-        tip = np.flatnonzero((np.abs(coords[:, 0] - nx) < 1e-6)
-                             & (np.abs(coords[:, 1]) < 1e-6))
+        self.mask[torch.as_tensor(fixed.reshape(-1), device=self.device)] = 0
         self.f = torch.zeros(3 * n_nodes, **kw)
-        self.f.view(-1, 3)[torch.as_tensor(tip, device=self.device)] = \
-            torch.as_tensor(config["load"]["total_force"], **kw) / len(tip)
+        self.f.view(-1, 3)[torch.as_tensor(loaded, device=self.device)] = \
+            torch.as_tensor(config["load"]["total_force"], **kw) \
+            / int(loaded.sum())
         self._filter_weights()
 
     def _filter_weights(self):

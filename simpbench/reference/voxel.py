@@ -1,6 +1,6 @@
-"""Plain reference of the voxel cantilever: the hex8 stiffness, K(rho) u on
-a node field, the element energies, the cone sensitivity filter, the load
-and the supports, written from the problem's definition.
+"""Plain reference of a voxel problem: the hex8 stiffness, K(rho) u on a
+node field, the element energies, the cone sensitivity filter, and the
+configuration's supports and load, written from the problem's definition.
 
 A node field is (nx+1, ny+1, nz+1, 3); a cell field (nx, ny, nz).  Every
 operation is plain PyTorch in the precision asked for ("float64", "float32"
@@ -15,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-from .common import dyoungs, isotropic_D, matmul, strain_B, youngs
+from .common import (dyoungs, isotropic_D, lattice, matmul, strain_B,
+                     supports_and_load, youngs)
 
 # corner offsets of a hex8 element, in VTK order
 CORNERS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
@@ -41,9 +42,10 @@ def hex8_ke(h, E, nu):
     return ke
 
 
-class VoxelProblem:
-    """The cantilever on an `nels` grid of unit cubes: fixed x=0 face, the
-    total force `load` split equally over the nodes of the line x=nx, y=0."""
+class Problem:
+    """The configuration on an `nels` grid of unit cubes: its supports
+    fix components of the nodes they select, its total force is split
+    equally over the nodes of its load's selection."""
 
     def __init__(self, config, nels, device, precision="float64"):
         self.nels = tuple(int(n) for n in nels)
@@ -54,11 +56,19 @@ class VoxelProblem:
         kw = dict(dtype=self.dtype, device=self.device)
         self.ke = torch.as_tensor(hex8_ke(1.0, 1.0, self.m["nu"]), **kw)
         nx, ny, nz = self.nels
+        fixed, loaded = supports_and_load(config, lattice(self.nels),
+                                          self.nels)
+
+        def node_field(a):          # x fastest -> (nx+1, ny+1, nz+1, ...)
+            a = a.reshape(nz + 1, ny + 1, nx + 1, *a.shape[1:])
+            return torch.as_tensor(np.ascontiguousarray(
+                np.moveaxis(a, (0, 1, 2), (2, 1, 0))), device=self.device)
+
         self.mask = torch.ones((nx + 1, ny + 1, nz + 1, 3), **kw)
-        self.mask[0] = 0.0
+        self.mask[node_field(fixed)] = 0.0
         self.f = torch.zeros_like(self.mask)
-        self.f[nx, 0, :, :] = torch.as_tensor(config["load"]["total_force"],
-                                              **kw) / (nz + 1)
+        self.f[node_field(loaded)] = torch.as_tensor(
+            config["load"]["total_force"], **kw) / int(loaded.sum())
         self.cell_volume = torch.ones(self.nels, **kw)
         self.total_volume = float(nx * ny * nz)
         # cone weights max(0, R - |d|) over integer cell offsets

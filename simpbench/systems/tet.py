@@ -18,7 +18,12 @@ import math
 import torch
 
 from ..cells import start_design
-from . import make_params
+from . import boundary, make_params
+
+
+def port_grid(pt, nels):
+    """The port's 6-tet mesh of `nels` unit cubes."""
+    return pt.tet_mesh_from_grid(pt.generate_grid(nels))
 
 
 class System:
@@ -31,14 +36,8 @@ class System:
         if cell.traffic["start"] != "uniform":
             raise ValueError("the tet system starts from the uniform design")
         self.cell, self.device = cell, torch.device(device)
-        nx, ny, nz = cell.grid()
-        self.mesh = mesh = pt.tet_mesh_from_grid(pt.generate_grid(
-            (nx, ny, nz)))
-        bcs = [pt.apply_fixed_boundary(mesh, pt.select_nodes_by_plane(
-            mesh, [0, 0, 0], [1, 0, 0], 1e-6))]
-        loads = [pt.PointLoad(pt.select_nodes_by_box(
-            mesh, [nx, 0, 0], [nx, 0, nz], 1e-6),
-            cell.config["load"]["total_force"])]
+        self.mesh = mesh = port_grid(pt, cell.grid())
+        bcs, loads = boundary(pt, mesh, cell.config, cell.grid())
         self.params = make_params(pt, cell.config)
         self.us = build_unstructured_step(mesh, loads, bcs, self.params,
                                           None, device=self.device)

@@ -21,7 +21,13 @@ import gc
 import torch
 
 from ..cells import SEED_SAMPLE, rng, start_design
-from . import make_params
+from . import boundary, make_params
+
+
+def port_grid(pt, nels):
+    """The port's grid of `nels` unit cubes."""
+    return pt.generate_grid(nels, (0.0, 0.0, 0.0),
+                            tuple(float(n) for n in nels))
 
 
 class System:
@@ -39,16 +45,10 @@ class System:
         from easysimp_tpu_torch.opt.optimize import build_voxel_step
 
         pt, config = self.pt, self.cell.config
-        nx, ny, nz = nels
-        grid = pt.generate_grid(nels, (0.0, 0.0, 0.0),
-                                tuple(float(n) for n in nels))
-        bc = pt.apply_fixed_boundary(
-            grid, pt.select_nodes_by_plane(grid, [0, 0, 0], [1, 0, 0], 1e-6))
-        load = pt.PointLoad(
-            pt.select_nodes_by_box(grid, [nx, 0, 0], [nx, 0, nz]),
-            config["load"]["total_force"])
+        grid = port_grid(pt, nels)
+        bcs, loads = boundary(pt, grid, config, nels)
         params = make_params(pt, config)
-        return build_voxel_step(grid, [load], [bc], params,
+        return build_voxel_step(grid, loads, bcs, params,
                                 device=self.device), params
 
     def _stepper(self, vs, params):

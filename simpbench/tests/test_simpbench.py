@@ -1,5 +1,6 @@
-"""CPU tests of the benchmark at tiny sizes (8^3 voxels, 4^3 x 6 tets; the
-cold cell's control at 16^3), with the program's plain kernels:
+"""CPU tests of the benchmark at each configuration's `tiny_nels` (8^3
+voxels, 4^3 x 6 tets; a cell's control at its workload file's
+`control_test_nels` where that is given), with the program's plain kernels:
 
     python -m pytest simpbench/tests -q -p no:cacheprovider --noconftest
 
@@ -31,26 +32,40 @@ from simpbench import trace as tracing
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = cells.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
-TINY = {"cantilever128-cold": [8, 8, 8],
-        "cantilever128-developed": [8, 8, 8],
-        "tet44-cold": [4, 4, 4]}
+CONFIGS = [c["name"] for c in BENCH["configs"]]
 torch.set_num_threads(2)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
+def tiny_nels(name):
+    """The tiny size of the cell's configuration."""
+    return cells.load_cell(name).config["tiny_nels"]
+
+
+def systems_module(kind):
+    return importlib.import_module(f"simpbench.systems.{kind}")
+
+
 def tiny(name):
-    return cells.load_cell(name, overrides={"nels": TINY[name]})
+    return cells.load_cell(name, overrides={"nels": tiny_nels(name)})
 
 
-def run_main(name, seed=5, trace=0, seconds=0.5):
-    """run.main on the CPU at the cell's tiny size: (exit code, last
-    stdout line as a dict or None)."""
+def config_of(name):
+    """The configuration `name` of BENCHMARK.json, from its file."""
+    entry = next(c for c in BENCH["configs"] if c["name"] == name)
+    return cells.load_json(ROOT / entry["file"])
+
+
+def run_main(name, seed=5, trace=0, seconds=0.5, overrides=None):
+    """run.main on the CPU at the cell's tiny size, or with `overrides` of
+    its configuration: (exit code, last stdout line as a dict or None)."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = run.main(["--workload", name, "--seed", str(seed), "--seconds",
                        str(seconds), "--trace", str(trace),
-                       "--device", "cpu"], overrides={"nels": TINY[name]})
+                       "--device", "cpu"],
+                      overrides=overrides or {"nels": tiny_nels(name)})
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None)
 
@@ -71,7 +86,8 @@ def test_cell_files_found_by_name(name):
     assert "setup_s" in names and len(names) >= 2 and cell.per_layer
     for m in cell.metrics + cell.per_layer:
         assert callable(cells.reader(m["name"]).read)
-    assert cell.config["kind"] in reference.PROBLEMS
+    kind = cell.config["kind"]
+    assert reference.module(kind).Problem and systems_module(kind).System
 
 
 def test_benchmark_file_keeps_the_contract():
@@ -112,9 +128,9 @@ def test_benchmark_file_keeps_the_contract():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 11, 2 ** 33 + 5])
-@pytest.mark.parametrize("config", ["cantilever128", "tet44"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_start_design_keeps_the_volume_fraction(config, seed):
-    cfg = cells.load_json(cells.HERE / "configs" / f"{config}.json")
+    cfg = config_of(config)
     vf = cfg["params"]["volume_fraction"]
     amp = cfg["seed_perturbation"]["amplitude"]
     x = cells.start_design(cfg, seed, (10, 9, 8))
@@ -203,6 +219,13 @@ def test_layer_readers(tmp_path):
 # the reference against the port's float64 semantics
 # --------------------------------------------------------------------------
 
+def cubes(config, nels):
+    """The configuration with its domain's extent on y and z cut to the
+    aspect of `nels`, so that the grid's cells are cubes."""
+    e = config["extent"][0]
+    return {**config, "extent": [e * n / nels[0] for n in nels]}
+
+
 def test_voxel_reference_agrees_with_the_port():
     import easysimp_tpu_torch as pt
     from easysimp_tpu_torch.ops.filters import VoxelFilter
@@ -210,7 +233,7 @@ def test_voxel_reference_agrees_with_the_port():
 
     cell = tiny("cantilever128-cold")
     nels = (5, 4, 3)
-    P = reference.problem(cell.config, nels, "cpu")
+    P = reference.problem(cubes(cell.config, nels), nels, "cpu")
     grid = pt.generate_grid(nels)
     op = VoxelOperator(grid, dtype=torch.float64, device="cpu")
     g = torch.Generator().manual_seed(0)
@@ -236,7 +259,7 @@ def test_tet_reference_agrees_with_the_port():
 
     cell = tiny("tet44-cold")
     nels = (4, 3, 3)
-    P = reference.problem(cell.config, nels, "cpu")
+    P = reference.problem(cubes(cell.config, nels), nels, "cpu")
     mesh = pt.tet_mesh_from_grid(pt.generate_grid(nels))
     assert np.array_equal(P.coords, mesh.node_coords)
     assert np.array_equal(P.conn, mesh.connectivity)
@@ -253,6 +276,165 @@ def test_tet_reference_agrees_with_the_port():
     s = -torch.rand(mesh.n_cells, generator=g, dtype=torch.float64)
     assert torch.allclose(P.sensitivity_filter(x, s),
                           filt.sensitivity_filter(x, s), rtol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# supports and loads as data
+# --------------------------------------------------------------------------
+
+def port_supports_and_load(config, nels):
+    """The port's free mask and load field (float64, host) of the
+    configuration on the port's grid of its kind."""
+    import easysimp_tpu_torch as pt
+    from easysimp_tpu_torch.bcs import build_free_mask
+    from easysimp_tpu_torch.loads import build_load_field
+
+    grid = systems_module(config["kind"]).port_grid(pt, nels)
+    bcs, loads = systems.boundary(pt, grid, config, nels)
+    return build_free_mask(grid, bcs), build_load_field(grid, loads)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_supports_and_load_agree_with_the_port(name, level):
+    """At the tiny size and its first continuation level, the reference's
+    mask and load equal the port's, bit for bit."""
+    config = config_of(name)
+    nels = [n >> level for n in config["tiny_nels"]]
+    P = reference.problem(config, nels, "cpu")
+    mask, f = port_supports_and_load(config, nels)
+    assert np.array_equal(P.mask.numpy(), mask.reshape(P.mask.shape))
+    assert np.array_equal(P.f.numpy(), f.reshape(P.f.shape))
+    assert 0 < int((P.mask == 0).sum()) < P.mask.numel()
+
+
+def frozen_voxel_cantilever(nels, force, dtype):
+    """The voxel cantilever's supports and load as the harness wrote them
+    in code: x=0 fixed, the force split over the line x=nx, y=0."""
+    nx, ny, nz = nels
+    mask = torch.ones((nx + 1, ny + 1, nz + 1, 3), dtype=dtype)
+    mask[0] = 0.0
+    f = torch.zeros_like(mask)
+    f[nx, 0, :, :] = torch.as_tensor(force, dtype=dtype) / (nz + 1)
+    return mask, f
+
+
+def frozen_tet_cantilever(nels, force, dtype):
+    """The same on the 6-tet mesh, selected by coordinates."""
+    coords, _ = reference.module("tet").mesh(nels)
+    nx = nels[0]
+    mask = torch.ones(3 * len(coords), dtype=dtype)
+    mask.view(-1, 3)[torch.as_tensor(
+        np.flatnonzero(np.abs(coords[:, 0]) < 1e-6))] = 0
+    tip = np.flatnonzero((np.abs(coords[:, 0] - nx) < 1e-6)
+                         & (np.abs(coords[:, 1]) < 1e-6))
+    f = torch.zeros(3 * len(coords), dtype=dtype)
+    f.view(-1, 3)[torch.as_tensor(tip)] = torch.as_tensor(
+        force, dtype=dtype) / len(tip)
+    return mask, f
+
+
+@pytest.mark.parametrize("name,frozen", [
+    ("cantilever128", frozen_voxel_cantilever),
+    ("tet44", frozen_tet_cantilever)])
+def test_data_gives_the_frozen_cantilever(name, frozen):
+    """The supports and load stated as data give what the code gave,
+    bit for bit, in the reference and in the port, in float64 and in the
+    control's float32."""
+    config = config_of(name)
+    nels = config["tiny_nels"]
+    force = config["load"]["total_force"]
+    for precision, dtype in (("float64", torch.float64),
+                             ("tf32", torch.float32)):
+        mask, f = frozen(nels, force, dtype)
+        P = reference.problem(config, nels, "cpu", precision)
+        assert torch.equal(P.mask, mask) and torch.equal(P.f, f)
+    got_mask, got_f = port_supports_and_load(config, nels)
+    mask, f = frozen(nels, force, torch.float64)
+    assert np.array_equal(got_mask.reshape(mask.shape), mask.numpy())
+    assert np.array_equal(got_f.reshape(f.shape), f.numpy())
+
+
+# The 2x1x1 MBB beam of `easysimp_tpu_torch/models/beam_2x1x1.py`
+# `build_mbb`, its supports and load written as data.
+MBB = {
+    "extent": [2, 1, 1],
+    "supports": [
+        {"what": "X-symmetry plane x=0",
+         "nodes": {"select": "plane", "point": [0, 0, 0],
+                   "normal": [1, 0, 0], "tolerance": 1e-6},
+         "components": [0]},
+        {"what": "Y-roller under the far bottom edge",
+         "nodes": {"select": "box", "min": [1.95, 0, 0], "max": [2, 0, 1],
+                   "tolerance": 1e-6},
+         "components": [1]},
+        {"what": "Z pin at the node nearest (0, 1, 0.5)",
+         "nodes": {"select": "closest", "point": [0, 1, 0.5]},
+         "components": [2]}],
+    "load": {"total_force": [0.0, -1.0, 0.0],
+             "where": "the top face within 0.1 of (0, 1, 0.5)",
+             "nodes": {"select": "circle", "center": [0, 1, 0.5],
+                       "normal": [0, 1, 0], "radius": 0.1,
+                       "tolerance": 1e-6}},
+}
+MBB_NELS = (16, 8, 8)
+
+
+def mbb_overrides():
+    """The cold cantilever cell's configuration with the MBB beam's
+    domain, supports, load and material at 16 x 8 x 8."""
+    params = dict(config_of("cantilever128")["params"], Emin=1e-6,
+                  volume_fraction=0.4, filter_radius=2.0)
+    return dict(MBB, nels=list(MBB_NELS), params=params)
+
+
+def test_mbb_supports_as_data():
+    """The reference's mask and load, and the port's from the data, equal
+    those that `build_mbb` itself gives."""
+    from easysimp_tpu_torch.bcs import build_free_mask
+    from easysimp_tpu_torch.loads import build_load_field
+    from easysimp_tpu_torch.models.beam_2x1x1 import build_mbb
+
+    grid, loads, bcs, params, _ = build_mbb(nels=MBB_NELS)
+    want_mask = build_free_mask(grid, bcs)
+    want_f = build_load_field(grid, loads)
+    config = dict(config_of("cantilever128"), **mbb_overrides())
+    P = reference.problem(config, MBB_NELS, "cpu")
+    assert np.array_equal(P.mask.numpy(), want_mask)
+    assert np.array_equal(P.f.numpy(), want_f)
+    mask, f = port_supports_and_load(config, MBB_NELS)
+    assert np.array_equal(mask, want_mask) and np.array_equal(f, want_f)
+    # sliding supports: some nodes have only some components fixed
+    fixed = (want_mask == 0).sum(-1)
+    assert ((fixed > 0) & (fixed < 3)).any()
+    assert (params.Emin, params.volume_fraction, params.filter_radius) == (
+        config["params"]["Emin"], config["params"]["volume_fraction"],
+        config["params"]["filter_radius"])
+
+
+@pytest.mark.parametrize("fault", [None, "displacements_altered"])
+def test_mbb_cell_is_judged(fault, monkeypatch):
+    """The cold cell with the MBB beam's data in place of the cantilever's
+    runs and comes out correct; with its displacements altered it does
+    not."""
+    if fault is not None:
+        cls = systems_module("voxel").System
+        monkeypatch.setattr(cls, "one_step",
+                            faults.FAULTS[fault](cls.one_step))
+    rc, out = run_main("cantilever128-cold", seed=2 ** 31 + 17,
+                       overrides=mbb_overrides())
+    assert rc == 0 and out["correct"] is (fault is None), out["checks"]
+
+
+def test_unknown_kind_raises():
+    with pytest.raises(ValueError, match=r"simpbench\.reference\.hex27"):
+        reference.problem({"kind": "hex27"}, (2, 2, 2), "cpu")
+
+
+def test_a_grid_of_cells_that_are_not_cubes_raises():
+    config = config_of("cantilever128")
+    with pytest.raises(ValueError, match="not cubes"):
+        cells.in_grid(config["load"]["nodes"], config, (8, 8, 4))
 
 
 # --------------------------------------------------------------------------
@@ -352,18 +534,16 @@ def test_exits_without_a_card_or_the_program(tmp_path):
 # the control and the faults come out not correct
 # --------------------------------------------------------------------------
 
-# sizes at which the TF32 control already reads past a committed limit
-CONTROL_NELS = {"cantilever128-cold": [16, 16, 16],
-                "cantilever128-developed": [8, 8, 8],
-                "tet44-cold": [4, 4, 4]}
-
-
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_not_correct(name):
     """The control (the reference in the program's place, in TF32) comes
     out not correct, and the program correct, under the cell's committed
-    limits, judged as calibrate.py judges them on the card."""
-    cell = cells.load_cell(name, overrides={"nels": CONTROL_NELS[name]})
+    limits, judged as calibrate.py judges them on the card.  The size is
+    the workload file's `control_test_nels`, where the configuration's tiny
+    size is too small for the TF32 control to read past a limit."""
+    nels = cells.load_json(cells.HERE / "workloads" / f"{name}.json").get(
+        "control_test_nels", tiny_nels(name))
+    cell = cells.load_cell(name, overrides={"nels": nels})
     system = systems.build(cell, "cpu")
     prog, info = calibrate.program_records(
         system, 11, cell.traffic["episode_iterations"])
@@ -382,8 +562,7 @@ FAULTS = [(name, fault) for name in CELLS
 def test_fault_is_not_correct(name, fault, monkeypatch):
     """A whole run at the tiny size with the fault planted under the
     harness comes out not correct."""
-    cls = importlib.import_module(
-        f"simpbench.systems.{tiny(name).config['kind']}").System
+    cls = systems_module(tiny(name).config["kind"]).System
     monkeypatch.setattr(cls, "one_step", faults.FAULTS[fault](cls.one_step))
     rc, out = run_main(name, seed=9)
     assert rc == 0 and out["correct"] is False, out["checks"]
