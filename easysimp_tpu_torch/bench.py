@@ -228,6 +228,7 @@ class _Stepper:
         """One SIMP iteration; returns (energy as a device scalar, CG
         iterations).  Mutates the carried trajectory state."""
         from easysimp_tpu_torch.ops.cg import recycle_push
+        from easysimp_tpu_torch.tracing import count
 
         vs, params = self.vs, self.params
         if self.pending_cg is not None:
@@ -251,6 +252,8 @@ class _Stepper:
                 self.state, self.pvecs = vs.setup(self.design, self.pvecs,
                                                   self.state)
             else:
+                if degraded:
+                    count("setup.watchdog")
                 self.state, self.pvecs = vs.setup(self.design, self.pvecs)
                 self.steps_since_full = 0
                 self.cg_baseline = None

@@ -70,7 +70,14 @@
 //      accumulators hold q_e at the very dofs of its A fragment: the dot
 //      w_e = u_e . q_e is taken from registers, reduced over the four lanes
 //      of an mma row group with shuffles in a fixed order; one store per
-//      element, no halo.
+//      element, no halo.  The A fragment is centred first: each element's
+//      mean displacement (per component, over its 8 corners, summed over
+//      the row group's four lanes with shuffles) is taken from its dofs.
+//      ke annihilates translations, so w_e is unchanged; without it a field
+//      that carries a large near-rigid motion (a simply supported beam's
+//      deflection, several units where an element's strain moves its
+//      corners by 1e-3) loses the energy's leading digits to cancellation,
+//      and cells of low energy read it wrong by tens of percent.
 //
 // 2. float64 storage: the first, simple kernels (voxel_matvec_kernel,
 //    voxel_energies_kernel), on the FP64 CUDA cores.  float64 runs only in
@@ -81,10 +88,11 @@
 //    incident elements (out-of-range elements count as E = 0), 600 FMAs per
 //    node with every ke coefficient taken from __constant__ memory by a
 //    compile-time index; element-centric energies over the upper triangle
-//    of the symmetric ke.  ke is copied to constant memory on the launch
-//    stream before each launch, stream-ordered with the kernel; launches
-//    with different ke on different streams at once would race, and the
-//    package launches on the current stream only.
+//    of the symmetric ke, from the centred element dofs as above.  ke is
+//    copied to constant memory on the launch stream before each launch,
+//    stream-ordered with the kernel; launches with different ke on
+//    different streams at once would race, and the package launches on the
+//    current stream only.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -375,6 +383,45 @@ __device__ __forceinline__ int column_at(int col, int base, int dnext) {
   return base + (col & 0x7fffffff) + (dnext & (col >> 31));
 }
 
+// Takes each element's mean displacement from its A fragment values.
+// Lane (g, t) holds, per row tile r, columns k = 8 kt + t + 4 h (value
+// [r][kt][2 h + w]) of elements g (w = 0) and g + 8 (w = 1); column k is
+// component k % 3 = (2 kt + t + h) % 3, two of each per lane, eight per
+// element over the four lanes t of the row group.  Sums in a fixed order:
+// the lane's own, then over t with shuffles.
+__device__ __forceinline__ void centre_rows(float (&a)[kRows][3][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float m[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kt = 0; kt < 3; ++kt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = (2 * kt + t + (i >> 1)) % 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (j == c) m[i & 1][c] += a[r][kt][i];
+      }
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        m[w][c] += __shfl_xor_sync(0xffffffffu, m[w][c], 1);
+        m[w][c] += __shfl_xor_sync(0xffffffffu, m[w][c], 2);
+        m[w][c] *= 0.125f;
+      }
+#pragma unroll
+    for (int kt = 0; kt < 3; ++kt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = (2 * kt + t + (i >> 1)) % 3;
+        const float* mw = m[i & 1];
+        a[r][kt][i] -= j == 0 ? mw[0] : (j == 1 ? mw[1] : mw[2]);
+      }
+  }
+}
+
 // Issues q = A ke for the warp's kRows mma row tiles (16 elements along z
 // each, consecutive element rows) in fp32 accuracy, as wgmma over the
 // warpgroup's four warps: every A fragment is loaded and split first, then
@@ -383,14 +430,16 @@ __device__ __forceinline__ int column_at(int col, int base, int dnext) {
 // of the first row tile; ke: the ke tiles.
 // acc[r][nt] holds Q[g][8nt+2t..+1] ([0..1]) and Q[g+8][..] ([2..3]);
 // a[r][kt] the A fragment's values as loaded (rows g, g+8 of columns
-// 8 kt + t, 8 kt + t + 4).
-template <typename T>
+// 8 kt + t, 8 kt + t + 4), less their element's mean displacement if
+// kCentre (centre_rows).
+template <typename T, bool kCentre = false>
 __device__ __forceinline__ void issue_products(float (&acc)[kRows][3][4],
                                                  float (&a)[kRows][3][4],
                                                  const unsigned char* sm,
                                                  const int (&pa)[3][2],
                                                  const unsigned char* ke) {
-  constexpr bool kSplitA = sizeof(T) == 4;  // bf16 is exact in TF32
+  // bf16 is exact in TF32, unless centring moved it off the bf16 grid
+  constexpr bool kSplitA = sizeof(T) == 4 || kCentre;
   uint32_t ah[kRows][3][4], al[kRows][3][4];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
@@ -402,6 +451,12 @@ __device__ __forceinline__ void issue_products(float (&acc)[kRows][3][4],
       a[r][kt][1] = ldsf(p0 + PNODE8);
       a[r][kt][2] = ldsf(p1);
       a[r][kt][3] = ldsf(p1 + PNODE8);
+    }
+  if (kCentre) centre_rows(a);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int kt = 0; kt < 3; ++kt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float x = a[r][kt][i];
@@ -665,7 +720,7 @@ voxel_energies_tc(const T* __restrict__ u, const float* __restrict__ ke,
 #pragma unroll
       for (int h = 0; h < 2; ++h) pa[kt][h] = column_at(ca[kt][h], base, dnext);
     float acc[kRows][3][4], a[kRows][3][4];
-    issue_products<T>(acc, a, smem, pa, smem);
+    issue_products<T, true>(acc, a, smem, pa, smem);
     wgmma_wait();
     // w_e = u_e . q_e: in kAOrder, accumulator column (nt, h) of this lane
     // holds q at the dof of its A value a[kt = nt][2 h] (row g; a[..][2 h +
@@ -784,6 +839,16 @@ voxel_energies_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
                           nnz + ez + corner_z(c)) * 3;
 #pragma unroll
     for (int j = 0; j < 3; ++j) ue[3 * c + j] = load<T, C>(p + j);
+  }
+  // centred: less the element's mean displacement
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    C m = C(0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) m += ue[3 * c + j];
+    m *= C(0.125);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) ue[3 * c + j] -= m;
   }
 
   // w = sum_p u_p (ke_pp u_p + 2 sum_{q>p} ke_pq u_q)

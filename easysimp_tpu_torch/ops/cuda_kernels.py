@@ -65,6 +65,7 @@ __all__ = [
     "voxel_matvec_plain",
     "voxel_energies",
     "voxel_energies_plain",
+    "centre_element_dofs",
     "voxel_matvec_simple_f32",
     "element_apply",
     "element_apply_plain",
@@ -135,9 +136,20 @@ def voxel_matvec_plain(u, scale, ke):
     return scatter_element_dofs(q * scale.to(ke.dtype)[..., None]).to(u.dtype)
 
 
+def centre_element_dofs(ue):
+    """Element dofs (..., 24) less their element's mean displacement (each
+    component's mean over the 8 corners).  ke annihilates translations, so
+    u_e^T ke u_e is unchanged, but a displacement field that carries a large
+    near-rigid motion (a simply supported beam's deflection) no longer
+    cancels away the energy's leading digits."""
+    corners = ue.unflatten(-1, (8, 3))
+    return (corners - corners.mean(dim=-2, keepdim=True)).flatten(-2)
+
+
 def voxel_energies_plain(u, ke):
-    """u_e^T ke u_e per element, (nx, ny, nz), computed in ke's dtype."""
-    ue = gather_element_dofs(u).to(ke.dtype)
+    """u_e^T ke u_e per element, (nx, ny, nz), computed in ke's dtype from
+    the centred element dofs (`centre_element_dofs`)."""
+    ue = centre_element_dofs(gather_element_dofs(u).to(ke.dtype))
     q = (ue.reshape(-1, 24) @ ke).reshape(ue.shape)
     return (ue * q).sum(dim=-1).to(u.dtype)
 
@@ -342,7 +354,8 @@ def voxel_matvec_simple_f32(u, scale, ke):
 
 
 def voxel_energies(u, ke):
-    """u_e^T ke u_e per element, (nx, ny, nz), in u's storage dtype.
+    """u_e^T ke u_e per element, (nx, ny, nz), in u's storage dtype, from
+    the centred element dofs (`centre_element_dofs`).
 
     ke: (24, 24) in `compute_dtype(u.dtype)`.  CPU tensors take
     `voxel_energies_plain`; CUDA tensors launch the kernel."""

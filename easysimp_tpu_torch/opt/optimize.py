@@ -374,7 +374,9 @@ def build_voxel_step(grid, loads, boundary_conditions,
         """Preconditioner setup on the design's moduli: full, or
         multigrid's light one on top of prev_state.  Returns (state, new
         power vectors)."""
-        with span("setup.full" if prev_state is None else "setup.light"):
+        kind = "setup.full" if prev_state is None else "setup.light"
+        count(kind)
+        with span(kind):
             scale = precond_scale(physical(design))
             if prev_state is None:
                 return precond.setup(scale, free_mask, pvecs)
@@ -603,6 +605,8 @@ def simp_optimize(grid, loads, boundary_conditions,
                     and it - last_full_it < params.mg_full_setup_every):
                 state, pvecs = vs.setup(design, pvecs, state)
             else:
+                if degraded:
+                    count("setup.watchdog")
                 state, pvecs = vs.setup(design, pvecs)
                 last_full_it = it
                 cg_baseline = None

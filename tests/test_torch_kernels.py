@@ -5,7 +5,9 @@ The kernels run only on the card (`chip_smoke.py` holds them against their
 plain versions there).  Here their arithmetic is emulated in PyTorch with
 `tf32_round`: the element product q_e = ke u_e in 3xTF32 (both operands
 split into a TF32 high part and a TF32 remainder, three products summed in
-float32), held against the JAX package's float64 operator.
+float32), held against the JAX package's float64 operator.  The energies
+take the element dofs less their element's mean displacement
+(`centre_element_dofs`), as the kernels and the plain version do.
 """
 
 import inspect
@@ -75,8 +77,17 @@ def _emulated_kernels(nels, split):
     q = q.reshape(ue.shape)
     mv = ck.scatter_element_dofs(
         q * torch.tensor(scale, dtype=torch.float32)[..., None])
-    en = (ue * q).sum(dim=-1)
-    return (mv.double().numpy(), want_mv), (en.double().numpy(), want_en)
+    return ((mv.double().numpy(), want_mv),
+            (_emulated_energies(u32, op_p.ke, split).double().numpy(),
+             want_en))
+
+
+def _emulated_energies(u32, ke, split):
+    """The energies kernel's arithmetic: centred element dofs, q = ke u_e
+    on the tensor cores, the dot in float32."""
+    ue = ck.centre_element_dofs(ck.gather_element_dofs(u32))
+    q = _emulated_products(ue.reshape(-1, 24), ke, split).reshape(ue.shape)
+    return (ue * q).sum(dim=-1)
 
 
 @pytest.mark.parametrize("nels", [(7, 5, 4), (3, 6, 5)])
@@ -93,6 +104,30 @@ def test_single_tf32_misses_the_float32_tolerance():
     float32 tolerance of 1e-5 of max|out|, which is why they split."""
     for got, want in _emulated_kernels((7, 5, 4), split=False):
         assert np.abs(got - want).max() > 1e-5 * np.abs(want).max()
+
+
+def test_centred_energies_survive_a_large_translation():
+    """A displacement field that carries a translation 10^3 times its
+    element-to-element variation (a deflected, simply supported beam's):
+    the energies from the centred dofs, the plain version's and the
+    kernel's emulated arithmetic, stay within 1e-5 of max|out| of the
+    float64 energies; the uncentred float32 product loses them."""
+    rng = np.random.default_rng(11)
+    grid = pt.generate_grid((7, 5, 4), (0.0, 0.0, 0.0), (1.4, 1.0, 0.8))
+    op64 = pt.VoxelOperator(grid, nu=0.3, dtype=torch.float64, device="cpu")
+    op32 = pt.VoxelOperator(grid, nu=0.3, dtype=torch.float32, device="cpu")
+    u = torch.tensor(rng.standard_normal((*grid.nnodes_per_axis, 3)))
+    u += torch.tensor([1e3, -3e3, 2e3], dtype=torch.float64)
+    u32 = u.float()
+    want = op64.element_energies_unit(u32.double())
+    ref = float(want.abs().max())
+    plain = ck.voxel_energies_plain(u32, op32.ke).double()
+    emulated = _emulated_energies(u32, op32.ke, split=True).double()
+    ue = ck.gather_element_dofs(u32).reshape(-1, 24)
+    uncentred = (ue * (ue @ op32.ke)).sum(dim=-1).reshape(want.shape)
+    assert float((plain - want).abs().max()) <= 1e-5 * ref
+    assert float((emulated - want).abs().max()) <= 1e-5 * ref
+    assert float((uncentred.double() - want).abs().max()) > 1e-2 * ref
 
 
 def _small_problem():

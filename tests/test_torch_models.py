@@ -15,22 +15,27 @@ from easysimp_tpu_torch.models import beam_2x1x1 as beam_p
 from easysimp_tpu_torch.models import cantilever as cant_p
 from easysimp_tpu_torch.models import tol_study
 
+# the MBB beam also through multigrid: its sliding supports through the
+# coarse levels (16x8x8 coarsens once, to 8x4x4)
 _VARIANTS = [
-    (cant_r, cant_p, "basic", (12, 4, 2)),
-    (cant_r, cant_p, "sliding", (12, 4, 2)),
-    (cant_r, cant_p, "acceleration", (12, 4, 2)),
-    (beam_r, beam_p, "four_legs", (8, 4, 4)),
-    (beam_r, beam_p, "mbb", (8, 4, 4)),
-    (beam_r, beam_p, "michell", (8, 4, 4)),
-    (beam_r, beam_p, "michell_half", (8, 4, 4)),
+    (cant_r, cant_p, "basic", (12, 4, 2), "jacobi"),
+    (cant_r, cant_p, "sliding", (12, 4, 2), "jacobi"),
+    (cant_r, cant_p, "acceleration", (12, 4, 2), "jacobi"),
+    (beam_r, beam_p, "four_legs", (8, 4, 4), "jacobi"),
+    (beam_r, beam_p, "mbb", (8, 4, 4), "jacobi"),
+    (beam_r, beam_p, "mbb", (16, 8, 8), "multigrid"),
+    (beam_r, beam_p, "michell", (8, 4, 4), "jacobi"),
+    (beam_r, beam_p, "michell_half", (8, 4, 4), "jacobi"),
 ]
 _RUN = dict(max_iterations=3, tolerance=1e-9, dtype="float64",
-            cg_rtol=1e-12, preconditioner="jacobi")
+            cg_rtol=1e-12)
 
 
-@pytest.mark.parametrize("mod_r,mod_p,variant,nels", _VARIANTS,
-                         ids=[v[2] for v in _VARIANTS])
-def test_model_matches_reference(mod_r, mod_p, variant, nels):
+@pytest.mark.parametrize(
+    "mod_r,mod_p,variant,nels,preconditioner", _VARIANTS,
+    ids=[v[2] if v[4] == "jacobi" else f"{v[2]}-{v[4]}" for v in _VARIANTS])
+def test_model_matches_reference(mod_r, mod_p, variant, nels,
+                                 preconditioner):
     """Each variant builds exactly the JAX package's free mask, load field,
     parameters and body force, and its 3-iteration run through `run`
     matches at rtol 1e-8."""
@@ -45,8 +50,9 @@ def test_model_matches_reference(mod_r, mod_p, variant, nels):
     assert params_p.__dict__ == params_r.__dict__
     assert accel_p == accel_r
 
-    want = mod_r.run(variant, nels=nels, **_RUN)
-    got = mod_p.run(variant, device="cpu", nels=nels, **_RUN)
+    run = dict(_RUN, preconditioner=preconditioner)
+    want = mod_r.run(variant, nels=nels, **run)
+    got = mod_p.run(variant, device="cpu", nels=nels, **run)
     assert got.iterations == want.iterations == 3
     np.testing.assert_allclose(got.energy_history, want.energy_history,
                                rtol=1e-8)

@@ -9,6 +9,13 @@ in [0.3, 1]) and to 1e-9 on the 0.02/1.0 contrast field of
 tests/test_multigrid.py, whose 1.6e5 modulus contrast amplifies the
 last-bit differences of summation order (dot products, the dense Cholesky)
 through the power iteration and the coarse solve.
+
+The hierarchy, the setup state, M(r) and the MG-CG count are checked under
+two kinds of supports: an x=0 face clamped in every component, and the
+MBB beam's sliding supports (`models/beam_2x1x1.py` `build_mbb`: u_x on
+the plane x=0, u_y on a strip of the far bottom edge, u_z at one pin),
+whose per-component masks are injected through the coarse levels and hold
+the z translation by one dof.
 """
 
 import numpy as np
@@ -19,6 +26,7 @@ import torch
 
 import easysimp_tpu as et
 import easysimp_tpu_torch as pt
+from easysimp_tpu.models import beam_2x1x1 as beam_r
 from easysimp_tpu.ops import multigrid as jm
 from easysimp_tpu_torch.carry import power_vectors_from_numpy
 from easysimp_tpu_torch.ops import multigrid as tm
@@ -28,9 +36,30 @@ _JD = {"float64": jnp.float64, "float32": jnp.float32}
 _TD = {"float64": torch.float64, "float32": torch.float32}
 
 
-def _pair(nels=(16, 8, 8), dtype="float64", contrast=False, seed=5):
-    """Operators of both packages on the x=0-clamped grid, its free mask,
-    both packages' moduli of one design and a masked residual (numpy)."""
+def with_supports(cases):
+    """Each (values, id) case under both kinds of supports: the clamped
+    face keeps the case's id, the MBB's sliding supports add "-mbb"."""
+    return ([pytest.param(*values, "clamped", id=i) for values, i in cases]
+            + [pytest.param(*values, "mbb", id=f"{i}-mbb")
+               for values, i in cases])
+
+
+def _free_mask(grid, nels, supports):
+    """The free mask of the x=0 face clamped, or of `build_mbb`'s sliding
+    supports on a grid of the same cell counts (numpy)."""
+    if supports == "clamped":
+        bc = et.apply_fixed_boundary(
+            grid, et.select_nodes_by_plane(grid, [0, 0, 0], [1, 0, 0], 1e-6))
+        return et.build_free_mask(grid, [bc])
+    beam, _, bcs, _, _ = beam_r.build_mbb(nels=nels)
+    return et.build_free_mask(beam, bcs)
+
+
+def _pair(nels=(16, 8, 8), dtype="float64", contrast=False, seed=5,
+          supports="clamped"):
+    """Operators of both packages on the grid of unit cubes, its free mask
+    under `supports`, both packages' moduli of one design and a masked
+    residual (numpy)."""
     ext = tuple(float(n) for n in nels)
     grid_r = et.generate_grid(nels, (0.0, 0.0, 0.0), ext)
     grid_p = pt.generate_grid(nels, (0.0, 0.0, 0.0), ext)
@@ -38,9 +67,7 @@ def _pair(nels=(16, 8, 8), dtype="float64", contrast=False, seed=5):
                             dtype=_JD[dtype])
     op_p = pt.VoxelOperator(grid_p, E0=200.0, Emin=1e-6, nu=0.3, p=3.0,
                             dtype=_TD[dtype], device="cpu")
-    bc = et.apply_fixed_boundary(
-        grid_r, et.select_nodes_by_plane(grid_r, [0, 0, 0], [1, 0, 0], 1e-6))
-    mask = et.build_free_mask(grid_r, [bc])
+    mask = _free_mask(grid_r, nels, supports)
     rng = np.random.default_rng(seed)
     if contrast:
         rho = rng.choice([0.02, 1.0], size=grid_r.nels, p=[0.5, 0.5])
@@ -101,16 +128,18 @@ def test_coarsen_mask_and_unknown_rule():
         tm.coarsen_cells(torch.ones((2, 2, 2)), "geometric")
 
 
-@pytest.mark.parametrize("nels,env,levels", [
-    ((16, 8, 8), "4100", 0), ((16, 8, 8), "500", 0), ((24, 12, 12), None, 0),
-    ((10, 6, 4), None, 0), ((5, 3, 3), None, 0), ((32, 16, 16), "100", 2),
-])
-def test_hierarchy_matches_reference(monkeypatch, nels, env, levels):
+@pytest.mark.parametrize("nels,env,levels,supports", with_supports(
+    [(c, f"nels{k}-{c[1]}-{c[2]}") for k, c in enumerate([
+        ((16, 8, 8), "4100", 0), ((16, 8, 8), "500", 0),
+        ((24, 12, 12), None, 0), ((10, 6, 4), None, 0), ((5, 3, 3), None, 0),
+        ((32, 16, 16), "100", 2)])]))
+def test_hierarchy_matches_reference(monkeypatch, nels, env, levels,
+                                     supports):
     """Level count and grids, EASYSIMP_MAX_COARSE_DOFS and mg_levels read
     the same way; Galerkin weights of the direct levels equal."""
     if env is not None:
         monkeypatch.setenv("EASYSIMP_MAX_COARSE_DOFS", env)
-    op_r, op_p, *_ = _pair(nels)
+    op_r, op_p, *_ = _pair(nels, supports=supports)
     mg_r, mg_p = _mgs(op_r, op_p, levels=levels)
     assert mg_p.n_levels == mg_r.n_levels
     assert [o.grid.nels for o in mg_p.ops] == [o.grid.nels for o in mg_r.ops]
@@ -140,16 +169,17 @@ def _coarse_solve(mg, state, x, jax_state=None):
     return dinv * jax.scipy.linalg.cho_solve(cho, dinv * jnp.asarray(x))
 
 
-@pytest.mark.parametrize("galerkin,warm,power_iters", [
-    (True, False, 10), (True, True, 10), (False, False, 10),
-    (False, True, 10), (True, False, 0)])
+@pytest.mark.parametrize("galerkin,warm,power_iters,supports", with_supports(
+    [(c, "-".join(map(str, c))) for c in [
+        (True, False, 10), (True, True, 10), (False, False, 10),
+        (False, True, 10), (True, False, 0)]]))
 def test_setup_state_matches_reference(three_levels, galerkin, warm,
-                                       power_iters):
+                                       power_iters, supports):
     """diags, lams, omegas, Chebyshev-free state, stencils, power vectors
     and the coarsest factor's solve: 1e-12.  warm: both setups start from
     the JAX package's cold power vectors, carried into the port with
     power_vectors_from_numpy (power_init itself agrees too)."""
-    op_r, op_p, s_r, s_p, mask, _ = _pair(contrast=True)
+    op_r, op_p, s_r, s_p, mask, _ = _pair(contrast=True, supports=supports)
     mg_r, mg_p = _mgs(op_r, op_p, galerkin=galerkin, smooth_iters=(1, 2),
                       power_iters=power_iters)
     assert mg_p.n_levels == 3
@@ -186,16 +216,18 @@ def test_power_vectors_from_numpy_checks_shapes():
 # The preconditioner
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("contrast", [False, True], ids=["mild", "contrast"])
-@pytest.mark.parametrize("cycle", ["v", "w"])
-@pytest.mark.parametrize("smoother", ["chebyshev", "jacobi"])
-@pytest.mark.parametrize("galerkin", [True, False],
-                         ids=["galerkin", "rediscretized"])
+@pytest.mark.parametrize(
+    "galerkin,smoother,cycle,contrast,supports", with_supports(
+        [((g, sm, cy, co), f"{gi}-{sm}-{cy}-{ci}")
+         for g, gi in ((True, "galerkin"), (False, "rediscretized"))
+         for sm in ("chebyshev", "jacobi") for cy in ("v", "w")
+         for co, ci in ((False, "mild"), (True, "contrast"))]))
 def test_M_matches_reference(three_levels, contrast, cycle, smoother,
-                             galerkin):
+                             galerkin, supports):
     """M(r) from a cold setup, three levels: 1e-12 on the mild field, 1e-9
     at contrast (module docstring)."""
-    op_r, op_p, s_r, s_p, mask, r = _pair(contrast=contrast)
+    op_r, op_p, s_r, s_p, mask, r = _pair(contrast=contrast,
+                                          supports=supports)
     mg_r, mg_p = _mgs(op_r, op_p, smooth_iters=(1, 2), cycle=cycle,
                       smoother=smoother, galerkin=galerkin)
     assert mg_p.n_levels == 3
@@ -248,9 +280,18 @@ def test_M_is_linear_and_symmetric():
 def test_mg_cg_matches_reference_count():
     """CG with the port's multigrid takes the JAX package's iteration count
     on the contrast problem, and far fewer than Jacobi."""
+    _mg_cg_matches_reference_count("clamped")
+
+
+def test_mg_cg_matches_reference_count_mbb():
+    """The same under the MBB beam's sliding supports."""
+    _mg_cg_matches_reference_count("mbb")
+
+
+def _mg_cg_matches_reference_count(supports):
     from easysimp_tpu.ops.cg import cg_solve as cg_ref
 
-    op_r, op_p, s_r, s_p, mask, r = _pair(contrast=True)
+    op_r, op_p, s_r, s_p, mask, r = _pair(contrast=True, supports=supports)
     mg_r, mg_p = _mgs(op_r, op_p, smooth_iters=2)
     m_r, m_p = jnp.asarray(mask), torch.tensor(mask)
     ref = cg_ref(lambda v: op_r.apply(v, s_r, m_r), jnp.asarray(r),

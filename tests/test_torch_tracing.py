@@ -3,9 +3,12 @@ the spans a traced step exports and how they nest, the counters against
 what the code implies, bitwise-equal results with the profiler on and off,
 no profiler range entered without a profiler, and the arithmetic that
 reads spans and counters (simpbench/program_trace.py, the
-`host_syncs_per_iteration` reader), with the harness's own trace reading
-unchanged by the program's spans."""
+`host_syncs_per_iteration` and `full_setups_per_iteration` readers), with
+the harness's own trace reading unchanged by the program's spans; the
+setup counters against the bench schedule's cadence and its CG
+watchdog."""
 
+import dataclasses
 import json
 import math
 
@@ -283,3 +286,71 @@ def test_host_syncs_reader(counts, want, monkeypatch):
     monkeypatch.setattr(tracing, "_counts", dict(counts))
     got = cells.reader("host_syncs_per_iteration.tet").read(None)
     assert got == want
+
+
+# --------------------------------------------------------------------------
+# the setup cadence: full, light and watchdog-forced setups
+# --------------------------------------------------------------------------
+
+SETUP_KEYS = ("steps", "setup.full", "setup.light", "setup.watchdog")
+
+
+def setup_counts(s, monkeypatch, cg_count, n=10):
+    """The change of the setup counters over n iterations from the
+    prepared start state (a fresh stepper state: no setup yet), with the
+    CG count of the k-th solve (1-based) that the schedule reads set to
+    cg_count(k)."""
+    step = s.vs.step
+    solves = []
+
+    def counted(*args, **kwargs):
+        out = step(*args, **kwargs)
+        solves.append(out.cg_iters)
+        return dataclasses.replace(out, cg_iters=cg_count(len(solves)))
+
+    monkeypatch.setattr(s.vs, "step", counted)
+    before = tracing.counters()
+    s.restore()
+    for _ in range(n):
+        s.one_step()
+    after = tracing.counters()
+    assert len(solves) == n and all(c > 0 for c in solves)
+    return {k: after.get(k, 0) - before.get(k, 0) for k in SETUP_KEYS}
+
+
+@pytest.mark.parametrize("system", ["voxel"], indirect=True)
+def test_setup_counters_follow_the_schedule(system, monkeypatch):
+    """Ten iterations of the bench schedule at a steady CG count: a setup
+    in each, in full at iterations 1, 5 and 9 (every fourth) and light
+    between, none forced; the reader gives the schedule's 0.3 from these
+    counters.  (The tiny cell's own counts, 6, 8, 10, ..., trip the
+    watchdog at iteration 4, which moves the later full setups.)"""
+    c = setup_counts(system, monkeypatch, lambda k: 7)
+    assert c["steps"] == 10
+    assert c["setup.full"] + c["setup.light"] == 10
+    assert c["setup.full"] - c["setup.watchdog"] == 3
+    assert c["setup.watchdog"] == 0
+    monkeypatch.setattr(tracing, "_counts", dict(c))
+    assert cells.reader("full_setups_per_iteration").read(None) == 0.3
+
+
+@pytest.mark.parametrize("system", ["voxel"], indirect=True)
+def test_watchdog_counts_the_full_setups_it_forces(system, monkeypatch):
+    """A CG count that grows by half and more at every solve makes the
+    watchdog force full setups, and `setup.watchdog` counts each."""
+    c = setup_counts(system, monkeypatch, lambda k: 10 * 2 ** k)
+    assert c["setup.full"] + c["setup.light"] == 10
+    assert c["setup.watchdog"] > 0
+    assert c["setup.full"] - c["setup.watchdog"] >= 1
+    assert c["setup.full"] > 3
+
+
+@pytest.mark.parametrize("counts,want", [
+    ({"steps": 10, "setup.full": 3, "setup.light": 7}, 0.3),
+    ({"steps": 10, "setup.full": 5, "setup.watchdog": 2}, 0.5),
+    ({"steps": 10, "sync.cg_norm": 30}, None)])
+def test_full_setups_reader(counts, want, monkeypatch):
+    """`setup.full` over `steps`; None where the program keeps no setup
+    counter (as before the counter existed)."""
+    monkeypatch.setattr(tracing, "_counts", dict(counts))
+    assert cells.reader("full_setups_per_iteration").read(None) == want
