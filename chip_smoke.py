@@ -4,9 +4,9 @@
 
 Phases, each of which asserts and prints a line:
   1. card:    the `nvidia-smi` name and power limit;
-  2. build:   the two kernel libraries, each from its own source in
-              easysimp_tpu_torch/csrc (voxel_kernels.cu, element_apply.cu),
-              with nvcc;
+  2. build:   the three kernel libraries, each from its own source in
+              easysimp_tpu_torch/csrc (voxel_kernels.cu, element_apply.cu,
+              stencil_apply.cu), with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
               37x19x11, 128^3 and the thin ragged grids 1x2x3 and 33x1x65,
               in float64, float32 and bfloat16; two launches on the same
@@ -24,22 +24,36 @@ Phases, each of which asserts and prints a line:
               128^3 bench cantilever (float32, Jacobi PCG, adaptive forcing,
               8-slot recycle ring), 3 SIMP iterations; both kernels' launch
               counters must be > 0 for that run (the path before multigrid);
+  6a. stencil: the multigrid's masked stencil apply `stencil_apply`
+              against its plain version on the card, plain and residual
+              forms: at the level-1 shapes of mbb256-cold (129x65x65,
+              float32) and of the cantilever cells (65^3, bfloat16), at
+              mbb256's level 2 (65x33x33, float32), and at 3x5x7 and 2x9x4
+              nodes in every pair of stencil and field dtype (float64
+              1e-12, float32 1e-5, bfloat16 2e-2 of max|out|); two launches
+              bitwise equal; at both level-1 shapes the kernel and its
+              plain version timed (CUDA-graph replays) beside the byte
+              bound;
   6. multigrid: the V-cycle M(r) through the kernels against M(r) with the
               operator on its plain versions, on the card: float64 at
               16x8x8 (rtol 1e-12, also against the CPU) and at 128^3
               float32 with a bfloat16 cycle (5e-2 of max|M r|); two runs of
               M on one r bitwise equal; at 128^3 the level layout and memory,
               one V-cycle's device time, in all and by level, and one
-              stencil apply per level (CUDA-graph replays);
+              residual stencil apply per level, kernel and plain version
+              (CUDA-graph replays);
   7. main-mg: the main path, `simp_optimize` on the 128^3 bench cantilever
               with the bench.py:543-559 composition (Galerkin multigrid,
               bfloat16 V(1,2) cycle, light setup every 4, adaptive forcing,
               8-slot recycle ring), 10 SIMP iterations: seconds per
               iteration, CG counts (< 500), volume fraction, peak memory,
               launches per kernel and storage dtype (matvec on float32 and
-              bfloat16 > 0, energies > 0); then the same run again with a
-              synchronising timer around each setup and step, for the
-              split between setup and solve time;
+              bfloat16 > 0, energies > 0, stencil_apply on float32 (the
+              setup's power iterations) and bfloat16 > 0); then the same
+              run again with a synchronising timer around each setup and
+              step, for the split between setup and solve time; then 2
+              iterations under the profiler (host events): one
+              stencil_apply launch per `mg.stencil.<l>` span;
   8. e2e:     3 SIMP iterations of a small problem on the card through the
               kernels, against the same run with the operator's plain
               versions on the card: Jacobi float64 (also against the CPU,
@@ -153,9 +167,11 @@ Then a `kernels` JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `bound_ms` in the kernels line is the least time the card could take for
-the kernel's work at 128^3 float32 (element_apply: 44^3 x 6 tets float32,
-bound by its bytes): the larger of its bytes (each input read
-once, the output written once) at 3.35 TB/s and its operations at the peak
+the kernel's work at 128^3 float32 (element_apply: 44^3 x 6 tets float32;
+stencil_apply: the residual form at mbb256's level 1, float32, and with
+`bf16_` the cantilever's level 1, bfloat16; both bound by their bytes):
+the larger of its bytes (each input read once, the output written once)
+at 3.35 TB/s and its operations at the peak
 rates: the element products at the cheapest split that keeps float32
 accuracy (float32 storage: three TF32 products of 2 x 576 flops per element
 at 495 TFLOP/s; bfloat16 storage, whose values are exact in bfloat16: ke
@@ -164,7 +180,8 @@ plus the fp32 scale, sums or dot on the CUDA cores (67 TFLOP/s).  The
 launches are those of the main-mg run; `launches_lame` those of one
 main-lame run (5 iterations with the SIMP closure);
 `launches_unstructured` those of the main-unstructured run (the voxel
-kernels 0: no TPU kernel lies on that path); `launches_sharded` those of
+and stencil kernels 0: no TPU kernel and no voxel stencil lies on that
+path); `launches_sharded` those of
 the two main-sharded runs together; `launches_bench` those of the bench's
 128^3 trajectory (prelude included).
 
@@ -192,11 +209,13 @@ SOURCES = {
     "voxel_matvec": "easysimp_tpu_torch/csrc/voxel_kernels.cu",
     "voxel_energies": "easysimp_tpu_torch/csrc/voxel_kernels.cu",
     "element_apply": "easysimp_tpu_torch/csrc/element_apply.cu",
+    "stencil_apply": "easysimp_tpu_torch/csrc/stencil_apply.cu",
 }
 REPLACES = {
     "voxel_matvec": "easysimp_tpu/ops/pallas_kernels.py:183",
     "voxel_energies": "easysimp_tpu/ops/pallas_kernels.py:345",
     "element_apply": None,   # XLA's einsum in the JAX package
+    "stencil_apply": None,   # XLA's fused multiply-adds in the JAX package
 }
 TIMING_RUNS = 30
 GRAPH_CALLS = 10
@@ -207,7 +226,21 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 
-KERNELS = ("voxel_matvec", "voxel_energies", "element_apply")
+KERNELS = ("voxel_matvec", "voxel_energies", "element_apply",
+           "stencil_apply")
+# stencil_apply: (label, node counts, stencil dtype, field dtype) of its
+# card checks: the level-1 stencils of mbb256-cold (float32) and of the
+# cantilever cells (bfloat16), mbb256's level 2, and small odd grids (in
+# every dtype pair, below)
+STENCIL_CASES = [("mbb256 level 1", (129, 65, 65), torch.float32,
+                  torch.float32),
+                 ("cantilever128 level 1", (65, 65, 65), torch.bfloat16,
+                  torch.bfloat16),
+                 ("mbb256 level 2", (65, 33, 33), torch.float32,
+                  torch.float32)]
+STENCIL_SMALL = [(3, 5, 7), (2, 9, 4)]
+STENCIL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5,
+               torch.bfloat16: 2e-2}
 STORAGE = (torch.float64, torch.float32, torch.bfloat16)
 
 
@@ -540,7 +573,8 @@ def run_main_path(pt, ck):
     assert np.all(np.isfinite(res.densities))
     assert np.all(np.isfinite(res.displacements))
     assert launches["voxel_matvec"] > 0 and launches["voxel_energies"] > 0 \
-        and launches["element_apply"] == 0, launches
+        and launches["element_apply"] == launches["stencil_apply"] == 0, \
+        launches
     return launches
 
 
@@ -608,6 +642,72 @@ def run_e2e_check(pt, ck):
             assert ok
 
 
+def stencil_inputs(nodes, stencil_dtype, field_dtype, gen):
+    """(C, mask, x, r) on the card from `gen`: a random stencil and fields,
+    the mask with the x=0 plane fixed and a tenth of the other dofs."""
+    dev = dict(device="cuda", dtype=torch.float64)
+    C = torch.randn((3, 3, 3, 3, 3, *nodes), generator=gen, **dev)
+    mask = (torch.rand((*nodes, 3), generator=gen, **dev) > 0.1).double()
+    mask[0] = 0.0
+    x, r = (torch.randn((*nodes, 3), generator=gen, **dev) for _ in range(2))
+    return (C.to(stencil_dtype), mask.to(field_dtype), x.to(field_dtype),
+            r.to(field_dtype))
+
+
+def check_stencil_apply(ck):
+    """Phase 6a: stencil_apply against its plain version on the card, plain
+    and residual forms, at the cells' level shapes in their dtypes and at
+    small odd grids in every pair of stencil and field dtype (float64
+    1e-12, float32 1e-5, bfloat16 2e-2 of max|out|, by the stencil's dtype;
+    two launches bitwise equal); then at the two level-1 shapes the kernel
+    and its plain version timed (CUDA-graph replays) beside the byte bound:
+    C, x, mask and the output (and r in the residual form) once each."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = list(STENCIL_CASES) + [
+        ("x".join(map(str, n)), n, sd, fd) for n in STENCIL_SMALL
+        for sd in STORAGE for fd in STORAGE]
+    for label, nodes, sd, fd in cases:
+        C, mask, x, r = stencil_inputs(nodes, sd, fd, gen)
+        for form, rr in (("plain", None), ("residual", r)):
+            n0 = ck.launches("stencil_apply", sd)
+            got = ck.stencil_apply(C, mask, x, rr)
+            again = ck.stencil_apply(C, mask, x, rr)
+            torch.cuda.synchronize()
+            assert ck.launches("stencil_apply", sd) == n0 + 2
+            want = ck.stencil_apply_plain(C, mask, x, rr)
+            same = torch.equal(got, again)
+            ok, err, ref = agree(got, want, "of max|out|", STENCIL_TOL[sd])
+            phase("stencil", f"stencil_apply {label} {tuple(nodes)} nodes, "
+                  f"stencil {str(sd)[6:]}, field {str(fd)[6:]}, {form}: "
+                  f"max_abs_err {err:.3e} (max|out| {ref:.3e}, tol "
+                  f"{STENCIL_TOL[sd]:g} of max|out|), two launches bitwise "
+                  f"equal: {same} {'ok' if ok and same else 'FAIL'}")
+            assert ok, f"stencil_apply {label} {sd} {fd} {form}"
+            assert same, "stencil_apply is not deterministic"
+        del C, mask, x, r, got, again, want
+    timing = {}
+    for label, nodes, sd, fd in STENCIL_CASES[:2]:
+        C, mask, x, r = stencil_inputs(nodes, sd, fd, gen)
+        for form, rr in (("plain", None), ("residual", r)):
+            ms, plain_ms = interleaved_ms([
+                lambda: ck.stencil_apply(C, mask, x, rr),
+                lambda: ck.stencil_apply_plain(C, mask, x, rr)])
+            nbytes = C.nbytes + (3 if rr is None else 4) * x.nbytes
+            b_ms, b_by = bound(nbytes, 0, 2 * C.numel())
+            phase("stencil", f"  {label} {tuple(nodes)} {str(sd)[6:]} "
+                  f"{form}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                  f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB), "
+                  f"{100 * b_ms / ms:.1f}% of bound")
+            if form == "residual":
+                key = "" if label.startswith("mbb256") else "bf16_"
+                timing.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                               f"{key}bound_ms": b_ms, f"{key}bound_by": b_by,
+                               f"{key}bytes": nbytes})
+        del C, mask, x, r
+    torch.cuda.empty_cache()
+    return timing
+
+
 def mg_problem(pt, nels, dtype, device, seed=0):
     """The bench cantilever's operator and free mask at `nels`, moduli of a
     mild design (rho uniform in [0.3, 1]) and a masked random residual, all
@@ -637,8 +737,6 @@ def check_multigrid(pt, ck):
         MultigridPreconditioner,
         restrict,
     )
-    from easysimp_tpu_torch.ops.stencil import apply_stencil
-
     kw = dict(smooth_iters=(1, 2))
     # float64 16x8x8: kernels against plain versions on the card and the CPU
     runs = {}
@@ -722,16 +820,19 @@ def check_multigrid(pt, ck):
           f"replays): {cycle_ms:.4f} ms; by level (cycle from the level down "
           f"minus the next): "
           + ", ".join(f"L{lvl} {t:.4f} ms" for lvl, t in enumerate(own)))
-    # one apply_stencil per level that the cycle smooths with a stencil,
-    # with its byte bound (coefficients and field read once, the result
-    # written once)
+    # one residual stencil apply r - M C (M x) per level that the cycle
+    # smooths with a stencil, the kernel and its plain version, with its
+    # byte bound (C, x, mask and r read once, the result written once)
     for lvl in range(1, mg.n_levels - 1):
-        st = state["stencils"][lvl]
-        ms, = interleaved_ms([lambda: apply_stencil(st, rs[lvl])])
-        b_ms = (st.nbytes + 2 * rs[lvl].nbytes) / HBM_BYTES_PER_S * 1e3
-        phase("multigrid", f"  apply_stencil level {lvl} "
+        st, m = state["stencils"][lvl], state["masks"][lvl]
+        ms, plain_ms = interleaved_ms([
+            lambda: ck.stencil_apply(st, m, rs[lvl], rs[lvl]),
+            lambda: ck.stencil_apply_plain(st, m, rs[lvl], rs[lvl])])
+        b_ms = (st.nbytes + 4 * rs[lvl].nbytes) / HBM_BYTES_PER_S * 1e3
+        phase("multigrid", f"  stencil_apply level {lvl} "
               f"{tuple(rs[lvl].shape[:3])} nodes {str(st.dtype)[6:]}: "
-              f"{ms:.4f} ms (CUDA-graph replays), byte bound {b_ms:.4f} ms")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), "
+              f"byte bound {b_ms:.4f} ms")
     del state, M, got, again, want
     torch.cuda.empty_cache()
 
@@ -845,7 +946,29 @@ def run_main_mg(pt, ck):
     assert mv.get(torch.float32, 0) > 0 and mv.get(torch.bfloat16, 0) > 0, \
         by_dtype
     assert launches["voxel_energies"] > 0
+    # the setup's power iterations in float32, the bfloat16 cycle
+    sa = by_dtype["stencil_apply"]
+    assert sa.get(torch.float32, 0) > 0 and sa.get(torch.bfloat16, 0) > 0, \
+        by_dtype
+    traced_stencil_launches(pt, ck, grid, loads, bcs)
     return launches, grid, res
+
+
+def traced_stencil_launches(pt, ck, grid, loads, bcs, iterations=2):
+    """The main-mg run for `iterations` under the profiler (host events
+    only): stencil_apply launches exactly once per `mg.stencil.<l>` span."""
+    n0 = ck.launches("stencil_apply")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pt.simp_optimize(grid, loads, bcs, main_mg_params(pt, iterations))
+        torch.cuda.synchronize()
+    launched = ck.launches("stencil_apply") - n0
+    spans = sum(e.name.startswith("easysimp:mg.stencil.")
+                for e in prof.events())
+    phase("main-mg", f"  traced run, {iterations} iterations: stencil_apply "
+          f"launches {launched}, mg.stencil.* spans {spans} "
+          f"{'ok' if launched == spans > 0 else 'FAIL'}")
+    assert launched == spans > 0, (launched, spans)
 
 
 def counted_run(pt, ck, problem, params, **kw):
@@ -1543,8 +1666,8 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     assert res.densities.shape == (mesh.n_cells,)
     assert all(abs(a - b) <= 5e-3 * abs(b) for a, b in
                zip(timed_res.energy_history, res.energy_history))
-    assert launches["voxel_matvec"] == launches["voxel_energies"] == 0, \
-        launches
+    assert launches["voxel_matvec"] == launches["voxel_energies"] == \
+        launches["stencil_apply"] == 0, launches
     assert by_dtype["element_apply"] == {
         torch.float32: calls["apply"] + calls["element_energies_unit"]}, \
         (by_dtype, calls)
@@ -2015,7 +2138,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     for name, build in (("voxel_kernels", ck.build_kernels),
-                        ("element_apply", ck.build_element_kernels)):
+                        ("element_apply", ck.build_element_kernels),
+                        ("stencil_apply", ck.build_stencil_kernels)):
         t0 = time.perf_counter()
         build()
         info = ck.build_info[name]
@@ -2027,6 +2151,7 @@ def main() -> int:
     timing = check_kernels(pt, ck)
     timing["voxel_matvec"]["library_ms"] = library_matvec(pt, ck)
     run_main_path(pt, ck)
+    timing["stencil_apply"] = check_stencil_apply(ck)
     check_multigrid(pt, ck)
     launches, grid_mg, res_mg = run_main_mg(pt, ck)
     run_e2e_check(pt, ck)

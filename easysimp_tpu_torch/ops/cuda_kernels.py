@@ -10,21 +10,26 @@ Counterparts of easysimp_tpu/ops/pallas_kernels.py:
                   easysimp_tpu/ops/pallas_kernels.py:345-430): the per-element
                   quadratic u_e^T ke u_e.
 
-and one kernel that replaces no Pallas kernel:
+and two kernels that replace no Pallas kernel:
 
   element_apply   the unstructured operator's element product s_e ke_e u_e
                   with its own d x d matrix per element (tet4 / hex8 meshes),
                   which the JAX package leaves to XLA's einsum; the port's
                   gather -> torch.bmm -> scale streamed the matrices at a
                   tenth of the card's bandwidth.
+  stencil_apply   the multigrid's masked Galerkin stencil apply M C (M x),
+                  or r - M C (M x), which the JAX package leaves to XLA; the
+                  port's unfold view x C -> sum wrote and re-read a transient
+                  the size of C, at 8-18% of the card's bandwidth.
 
 The voxel kernels are CUDA C++ for sm_90a in `csrc/voxel_kernels.cu`, the
-element kernel in `csrc/element_apply.cu`; each source says what bounds its
-kernels on an H100 and what their design does about it.  For float32 and
-bfloat16 storage the voxel kernels run the element product on the tensor
-cores in 3xTF32 (`tf32_round` below states that arithmetic in PyTorch); for
-float64 they are simple kernels on the FP64 CUDA cores.  The element kernel
-streams its matrices through shared memory and sums on the CUDA cores.
+element kernel in `csrc/element_apply.cu`, the stencil kernel in
+`csrc/stencil_apply.cu`; each source says what bounds its kernels on an
+H100 and what their design does about it.  For float32 and bfloat16
+storage the voxel kernels run the element product on the tensor cores in
+3xTF32 (`tf32_round` below states that arithmetic in PyTorch); for float64
+they are simple kernels on the FP64 CUDA cores.  The element and stencil
+kernels stream their coefficients once and sum on the CUDA cores.
 Each source file is built at first use with `nvcc` into its own shared
 library with a plain C interface, under `_build/` keyed by a hash of that
 source alone (`library_path`), and loaded with ctypes.
@@ -39,7 +44,8 @@ Each launch adds one to the port's counter `launch.<kernel>.<storage dtype>`
 
 bf16 storage computes in fp32, as the Pallas kernels do: the voxel wrappers
 take `ke` in the compute dtype (float64 for float64 storage, float32
-otherwise); the element kernel reads its matrices in the storage dtype.
+otherwise); the element kernel reads its matrices, the stencil kernel its
+coefficients, in the storage dtype.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 
 from ..tracing import count, counters
 from .elements import HEX_CORNERS
+from .stencil import apply_stencil
 
 __all__ = [
     "compute_dtype",
@@ -69,9 +76,12 @@ __all__ = [
     "voxel_matvec_simple_f32",
     "element_apply",
     "element_apply_plain",
+    "stencil_apply",
+    "stencil_apply_plain",
     "tf32_round",
     "build_kernels",
     "build_element_kernels",
+    "build_stencil_kernels",
     "library_path",
     "launches",
 ]
@@ -81,22 +91,24 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 _COUNTER = {k: {dt: f"launch.{k}.{str(dt)[6:]}" for dt in _SUFFIX}
-            for k in ("voxel_matvec", "voxel_energies", "element_apply")}
+            for k in ("voxel_matvec", "voxel_energies", "element_apply",
+                      "stencil_apply")}
 _LIBRARIES = {"voxel_kernels": ("voxel_kernels.cu",),
-              "element_apply": ("element_apply.cu",)}
+              "element_apply": ("element_apply.cu",),
+              "stencil_apply": ("stencil_apply.cu",)}
 _ELEMENT_WIDTHS = (12, 24)   # dofs per element: tet4, hex8
 
 
 def launches(kernel, dtype=None):
-    """Launches of `kernel` ("voxel_matvec", "voxel_energies" or
-    "element_apply") so far, of one storage dtype or of all."""
+    """Launches of `kernel` ("voxel_matvec", "voxel_energies",
+    "element_apply" or "stencil_apply", counted by the stencil's dtype) so
+    far, of one storage dtype or of all."""
     c = counters()
     return sum(c.get(name, 0) for dt, name in _COUNTER[kernel].items()
                if dtype is None or dt == dtype)
 
 
-_lib = None           # the loaded libraries (each built at first CUDA use)
-_element_lib = None
+_libs: dict = {}       # the loaded libraries (each built at first CUDA use)
 build_info: dict = {}  # per library: path, seconds and compiler output
 
 
@@ -202,10 +214,11 @@ def _nvcc() -> str:
 
 
 def library_path(name):
-    """(sources, shared library path) of kernel library `name` ("voxel_kernels"
-    or "element_apply").  Each library is built from its own sources alone,
-    under a name keyed by their hash, so an edited source rebuilds only its
-    library and an unchanged one is reused."""
+    """(sources, shared library path) of kernel library `name`
+    ("voxel_kernels", "element_apply" or "stencil_apply").  Each library is
+    built from its own sources alone, under a name keyed by their hash, so
+    an edited source rebuilds only its library and an unchanged one is
+    reused."""
     sources = [_CSRC / f for f in _LIBRARIES[name]]
     digest = hashlib.sha256()
     for src in sources:
@@ -236,44 +249,50 @@ def _load(name):
     return lib
 
 
+def _library(name, signatures):
+    """Library `name`, built and loaded at first use, with the argument
+    types of each function from `signatures` {symbol: argtypes}; every
+    function returns a C int."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _load(name)
+        for symbol, argtypes in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
 def build_kernels():
     """Build (if needed) and load the voxel kernels' shared library,
     `_build/voxel_kernels_<hash>.so`.  Raises on any failure."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = _load("voxel_kernels")
-    ptr = ctypes.c_void_p
+    matvec = [_PTR] * 4 + [_INT] * 3 + [_PTR]
+    signatures = {"voxel_matvec_simple_f32": matvec}
     for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"voxel_matvec_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"voxel_energies_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
-    lib.voxel_matvec_simple_f32.argtypes = lib.voxel_matvec_f32.argtypes
-    lib.voxel_matvec_simple_f32.restype = ctypes.c_int
-    _lib = lib
-    return lib
+        signatures[f"voxel_matvec_{sfx}"] = matvec
+        signatures[f"voxel_energies_{sfx}"] = [_PTR] * 3 + [_INT] * 3 + [_PTR]
+    return _library("voxel_kernels", signatures)
 
 
 def build_element_kernels():
     """Build (if needed) and load the element kernel's shared library,
     `_build/element_apply_<hash>.so`.  Raises on any failure."""
-    global _element_lib
-    if _element_lib is not None:
-        return _element_lib
-    lib = _load("element_apply")
-    ptr = ctypes.c_void_p
-    for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"element_apply_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                       ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
-    _element_lib = lib
-    return lib
+    return _library("element_apply", {
+        f"element_apply_{sfx}": [_PTR] * 6 + [ctypes.c_longlong, _INT, _PTR]
+        for sfx in _SUFFIX.values()})
+
+
+def build_stencil_kernels():
+    """Build (if needed) and load the stencil kernel's shared library,
+    `_build/stencil_apply_<hash>.so`: one function per pair of stencil and
+    field dtypes.  Raises on any failure."""
+    return _library("stencil_apply", {
+        f"stencil_apply_{a}_{b}": [_PTR] * 5 + [_INT] * 3 + [_PTR]
+        for a in _SUFFIX.values() for b in _SUFFIX.values()})
 
 
 # --------------------------------------------------------------------------
@@ -426,4 +445,63 @@ def element_apply(u, conn, ke, scale=None, mask=None):
             opt(mask), out.data_ptr(), E, d, stream)
     _raise_on(err, "element_apply")
     count(_COUNTER["element_apply"][u.dtype])
+    return out
+
+
+def stencil_apply_plain(C, mask, x, r=None, apply=apply_stencil):
+    """`stencil_apply` in plain tensor code on any device: mask, unmasked
+    apply, mask, then r minus it where r is given.  A field in another dtype
+    than the stencil's is applied in the stencil's: m x cast to it, the
+    result cast back.  `apply(C, u)` is the unmasked apply (the sharded
+    hierarchy passes its form with a halo)."""
+    if C.dtype != x.dtype:
+        y = mask * apply(C, (mask * x).to(C.dtype)).to(x.dtype)
+    else:
+        y = mask * apply(C, mask * x)
+    return y if r is None else r - y
+
+
+def _check_stencil(C, mask, x, r):
+    """Checks `stencil_apply`'s arguments; returns the node counts."""
+    for name, t in (("C", C), ("x", x)):
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name} has unsupported dtype {t.dtype}; "
+                            f"expected one of {list(_SUFFIX)}")
+    if x.dim() != 4 or x.shape[-1] != 3 or min(x.shape[:3]) < 1:
+        raise ValueError(f"x must be a (nnx, nny, nnz, 3) node field, got "
+                         f"{tuple(x.shape)}")
+    nodes = tuple(x.shape[:3])
+    _check_cuda("C", C, C.dtype, (3, 3, 3, 3, 3, *nodes), x.device)
+    for name, t in (("x", x), ("mask", mask), ("r", r)):
+        if t is not None:
+            _check_cuda(name, t, x.dtype, x.shape, x.device)
+    return nodes
+
+
+def stencil_apply(C, mask, x, r=None):
+    """The masked stencil apply of the multigrid's coarse levels,
+    M C (M x), or r - M C (M x) where r is given: (nnx, nny, nnz, 3) in x's
+    dtype.
+
+    C: the level's stencil (3, 3, 3, 3, 3, nnx, nny, nnz) (ops/stencil.py);
+    mask (the 0/1 dof mask), x and r: node fields (nnx, nny, nnz, 3) in one
+    dtype, which may differ from C's: the apply then runs in C's dtype, as
+    `stencil_apply_plain` states.  All contiguous, on one device.  CPU
+    tensors take `stencil_apply_plain`; CUDA tensors launch the kernel."""
+    nnx, nny, nnz = _check_stencil(C, mask, x, r)
+    if x.device.type == "cpu":
+        return stencil_apply_plain(C, mask, x, r)
+    if x.device.type != "cuda":
+        raise ValueError(f"no stencil_apply for device {x.device}")
+    lib = build_stencil_kernels()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"stencil_apply_{_SUFFIX[C.dtype]}_"
+                           f"{_SUFFIX[x.dtype]}")(
+            C.data_ptr(), mask.data_ptr(), x.data_ptr(),
+            None if r is None else r.data_ptr(), out.data_ptr(),
+            nnx, nny, nnz, stream)
+    _raise_on(err, "stencil_apply")
+    count(_COUNTER["stencil_apply"][C.dtype])
     return out

@@ -13,9 +13,11 @@ rediscretizes every level with coarsened moduli and the element operator.
 The level-0 operator of the cycle is a `VoxelOperator`, so on a CUDA device
 every level-0 smoother apply and residual launches the `voxel_matvec`
 kernel, in the cycle dtype's storage (bfloat16 for the bench composition).
-The stencil applies, transfers, im2col builds and the dense Cholesky are
-PyTorch ops.  M(r) makes no host synchronisation: the Chebyshev
-coefficients are device scalars computed once per setup.
+Every stencil apply of the coarser levels, and its residual r - A x, is
+one `stencil_apply` launch (ops/cuda_kernels.py).  The transfers, im2col
+builds and the dense Cholesky are PyTorch ops.  M(r) makes no host
+synchronisation: the Chebyshev coefficients are device scalars computed
+once per setup.
 
 Not ported, because they only work around the TPU: `power_init_split` and
 the per-level programs behind it, and the fused-kernel installs (a CUDA
@@ -32,9 +34,9 @@ import torch
 from ..grids import VoxelGrid
 from ..tracing import span
 from .cg import _vdot
+from .cuda_kernels import stencil_apply
 from .operator import VoxelOperator
 from .stencil import (
-    apply_stencil,
     coarsen_stencil,
     compose_level_weights,
     dense_index,
@@ -120,8 +122,9 @@ def coarsen_cells(scale, rule: str = "arithmetic"):
 
 
 def coarsen_mask(mask):
-    """Node-mask injection: coarse node constrained iff its fine image is."""
-    return mask[::2, ::2, ::2]
+    """Node-mask injection: coarse node constrained iff its fine image is.
+    Contiguous, as `stencil_apply` takes it."""
+    return mask[::2, ::2, ::2].contiguous()
 
 
 def _assembly_gather(conn, n_dofs):
@@ -374,20 +377,18 @@ class MultigridPreconditioner:
                 stencils[lvl] = st if sd_l is None else st.to(sd_l)
         return stencils, fp_diags
 
-    def _masked_stencil_apply(self, lvl, stencil, mask, v):
-        """Masked action of the level-`lvl` unfolded stencil, M C (M v).  A
-        field in another dtype than the stencil's is applied in the
-        stencil's dtype and the result cast back."""
+    def _masked_stencil_apply(self, lvl, stencil, mask, v, r=None):
+        """Masked action of the level-`lvl` unfolded stencil, M C (M v), or
+        the residual r - M C (M v) where r is given.  A field in another
+        dtype than the stencil's is applied in the stencil's dtype and the
+        result cast back."""
         with span(f"mg.stencil.{lvl}"):
-            if stencil.dtype != v.dtype:
-                mv = (mask * v).to(stencil.dtype)
-                return mask * self._apply_stencil(stencil, mv).to(v.dtype)
-            return mask * self._apply_stencil(stencil, mask * v)
+            return self._stencil_apply(stencil, mask, v, r)
 
     # The cycle's grid operations are methods so that the sharded hierarchy
     # can run them with a halo on each shard's block.
-    def _apply_stencil(self, stencil, u):
-        return apply_stencil(stencil, u)
+    def _stencil_apply(self, stencil, mask, v, r=None):
+        return stencil_apply(stencil, mask, v, r)
 
     def _restrict(self, lvl, f):
         """Level-`lvl` node field -> level lvl + 1."""
@@ -582,14 +583,16 @@ class MultigridPreconditioner:
         return self._with_chebyshev(state, (0, 1)), new_vecs
 
     # ------------------------------------------------------------------
-    def _apply_level(self, lvl, state, v):
-        """Cycle-time operator action at `lvl` (stencil or element-based)."""
+    def _apply_level(self, lvl, state, v, r=None):
+        """Cycle-time operator action at `lvl` (stencil or element-based),
+        or the residual r - A v where r is given (one stencil launch)."""
         st = state["stencils"][lvl]
         if st is not None:
             return self._masked_stencil_apply(lvl, st, state["masks"][lvl],
-                                              v)
+                                              v, r)
         op = self.cycle_ops[lvl]
-        return op.apply(v, state["scales"][lvl], state["masks"][lvl])
+        out = op.apply(v, state["scales"][lvl], state["masks"][lvl])
+        return out if r is None else r - out
 
     def _smooth(self, lvl, state, r, x, iters):
         """Damped Jacobi, or a degree-`iters` Chebyshev polynomial in D^-1 A
@@ -602,15 +605,15 @@ class MultigridPreconditioner:
                 x = omega * r / diag
                 iters = iters - 1
             for _ in range(iters):
-                x = x + omega * (r - self._apply_level(lvl, state, x)) / diag
+                x = x + omega * self._apply_level(lvl, state, x, r) / diag
             return x
 
         theta, steps = state["cheb"][lvl]
-        res = r if x is None else r - self._apply_level(lvl, state, x)
+        res = r if x is None else self._apply_level(lvl, state, x, r)
         d = (res / diag) / theta
         x = d if x is None else x + d
         for a, b in steps:
-            res = r - self._apply_level(lvl, state, x)
+            res = self._apply_level(lvl, state, x, r)
             d = a * d + b * (res / diag)
             x = x + d
         return x
@@ -623,13 +626,13 @@ class MultigridPreconditioner:
         iters = self._level_smooth_iters(lvl)
         with span(f"mg.smooth.{lvl}"):
             x = self._smooth(lvl, state, r, None, iters)  # x0 = 0
-        res = r - self._apply_level(lvl, state, x)
+        res = self._apply_level(lvl, state, x, r)
         with span(f"mg.transfer.{lvl}"):
             rc = state["masks"][lvl + 1] * self._restrict(lvl, res)
         xc = self._vcycle(lvl + 1, state, rc)
         if self.cycle == "w" and lvl + 1 < self.n_levels - 1:
             # W-cycle: a second coarse-grid visit on the updated residual
-            rc2 = rc - self._apply_level(lvl + 1, state, xc)
+            rc2 = self._apply_level(lvl + 1, state, xc, rc)
             xc = xc + self._vcycle(lvl + 1, state, rc2)
         with span(f"mg.transfer.{lvl}"):
             x = x + mask * self._prolong(lvl, xc)

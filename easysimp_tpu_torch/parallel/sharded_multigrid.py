@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import multigrid as mgm
+from ..ops.cuda_kernels import stencil_apply_plain
 from ..ops.stencil import (
     apply_stencil_padded,
     level_stencil_diag_from_scale,
@@ -137,10 +138,14 @@ class ShardedMultigrid(mgm.MultigridPreconditioner):
              for i, (b, st) in enumerate(zip(blocks, starts))], lay, "coef")
 
     # ----- cycle hooks ------------------------------------------------------
-    def _apply_stencil(self, stencil, u):
+    def _stencil_apply(self, stencil, mask, v, r=None):
+        """A distributed level keeps the plain composition with a halo on
+        each shard (the kernel takes no halo); the levels on the first
+        device take the base class's kernel."""
         if isinstance(stencil, ShardedField):
-            return _sharded_stencil_apply(stencil, u)
-        return super()._apply_stencil(stencil, u)
+            return stencil_apply_plain(stencil, mask, v, r,
+                                       apply=_sharded_stencil_apply)
+        return super()._stencil_apply(stencil, mask, v, r)
 
     def _restrict(self, lvl, f):
         """Level-`lvl` node field -> level lvl+1 (sharded, or gathered on

@@ -21,9 +21,10 @@ Spans (nested as the code nests them): `cg`, `cg.deflate`; `mg.vcycle`,
 `op.apply`; `amg.setup`, `amg.vcycle`; `halo.extend`; `sync.<site>`.
 Counters: `cg.iterations`, `steps` (SIMP iterations), `sync.<site>`,
 `launch.voxel_matvec.<dtype>`, `launch.voxel_energies.<dtype>`,
-`launch.element_apply.<dtype>`; `setup.full` and `setup.light` (voxel
-preconditioner setups), `setup.watchdog` (the full setups a degraded CG
-count forced).
+`launch.element_apply.<dtype>`, `launch.stencil_apply.<dtype>` (one per
+`mg.stencil.<l>` span on one device; the stencil's dtype); `setup.full`
+and `setup.light` (voxel preconditioner setups), `setup.watchdog` (the
+full setups a degraded CG count forced).
 """
 
 from __future__ import annotations

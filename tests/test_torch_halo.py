@@ -143,6 +143,47 @@ def test_sharded_vcycle_matches_unsharded(shape, monkeypatch):
     assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
 
 
+def test_sharded_levels_keep_the_halo_apply(monkeypatch):
+    """A distributed level applies its stencil as the plain composition
+    with a halo on each shard; only the levels gathered on the first device
+    call `stencil_apply` (the kernel on a card), always on whole tensors.
+    The distributed apply, plain and residual, equals `stencil_apply` on
+    the gathered fields to 1e-12."""
+    from easysimp_tpu_torch.ops import cuda_kernels as ck
+    from easysimp_tpu_torch.ops import multigrid as mgm
+
+    monkeypatch.setenv("EASYSIMP_MAX_COARSE_DOFS", "100")
+    calls = []
+
+    def recorded(C, mask, x, r=None):
+        calls.append(tuple(C.shape[5:]))
+        assert all(isinstance(t, torch.Tensor) for t in (C, mask, x))
+        return ck.stencil_apply(C, mask, x, r)
+
+    monkeypatch.setattr(mgm, "stencil_apply", recorded)
+    op, mask, scale, r = _problem((16, 8, 8), seed=3)
+    L = _layout((2, 2, 2), (16, 8, 8))
+    smg = ShardedMultigrid(HaloVoxelOperator(op, L), smooth_iters=(1, 2))
+    assert smg.n_distributed == 2 and smg.n_levels == 4
+    state, _ = smg.setup(L.split(scale, "cell"), L.split(mask, "node"))
+    smg.make_M(state)(L.split(r, "node"))
+    # levels 2 (5x3x3 nodes) and 3, the coarsest (its power iteration), on
+    # the first device; levels 0 and 1 distributed
+    assert set(calls) == {(5, 3, 3), (3, 2, 2)}
+    st, m1 = state["stencils"][1], state["masks"][1]
+    assert isinstance(st, ShardedField)
+    lay = smg.layouts[1]
+    rng = np.random.default_rng(4)
+    x, res = (torch.tensor(rng.standard_normal(tuple(m1.gather().shape)))
+              for _ in range(2))
+    for rr in (None, res):
+        got = smg._stencil_apply(st, m1, lay.split(x, "node"),
+                                 None if rr is None else lay.split(rr, "node"))
+        want = ck.stencil_apply(st.gather(), m1.gather(), x, rr)
+        assert float((got.gather() - want).abs().max()) \
+            <= 1e-12 * float(want.abs().max())
+
+
 def test_sharded_field_refuses_split_axis_ops():
     L = _layout((2, 2, 2), (4, 4, 4))
     f = L.split(torch.zeros(5, 5, 5, 3, dtype=torch.float64), "node")

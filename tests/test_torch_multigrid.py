@@ -31,6 +31,7 @@ from easysimp_tpu.ops import multigrid as jm
 from easysimp_tpu_torch.carry import power_vectors_from_numpy
 from easysimp_tpu_torch.ops import multigrid as tm
 from easysimp_tpu_torch.ops.cg import cg_solve
+from easysimp_tpu_torch.ops.stencil import apply_stencil
 
 _JD = {"float64": jnp.float64, "float32": jnp.float32}
 _TD = {"float64": torch.float64, "float32": torch.float32}
@@ -261,6 +262,48 @@ def test_narrow_M_matches_reference(narrow):
         torch.tensor(r, dtype=torch.float32))
     assert got.dtype == torch.float32
     _close(got, want, 1e-2)
+
+
+class _FormerApplies(tm.MultigridPreconditioner):
+    """The cycle's stencil applies as they were composed before
+    `stencil_apply`: mask, unfold x C -> sum, mask, and the caller's
+    r - (...)."""
+
+    def _stencil_apply(self, stencil, mask, v, r=None):
+        if stencil.dtype != v.dtype:
+            mv = (mask * v).to(stencil.dtype)
+            y = mask * apply_stencil(stencil, mv).to(v.dtype)
+        else:
+            y = mask * apply_stencil(stencil, mask * v)
+        return y if r is None else r - y
+
+
+@pytest.mark.parametrize("smoother,cycle,dtype,narrow", [
+    ("chebyshev", "v", "float64", None), ("jacobi", "v", "float64", None),
+    ("chebyshev", "w", "float64", None),
+    ("chebyshev", "v", "float32", "cycle_dtype"),
+    ("chebyshev", "v", "float32", "stencil_dtype")])
+def test_stencil_apply_keeps_the_cycle_bitwise(three_levels, smoother, cycle,
+                                               dtype, narrow):
+    """On the CPU, setup (power iterations through the level-1 apply) and
+    one M(r) with every stencil apply and residual through `stencil_apply`
+    are bitwise those of the former composition, under the MBB's sliding
+    supports; bfloat16 cycle and stencil storage included."""
+    _, op_p, _, s_p, mask, r = _pair(dtype=dtype, supports="mbb")
+    kw = dict(smooth_iters=(1, 2), smoother=smoother, cycle=cycle)
+    if narrow:
+        kw[narrow] = torch.bfloat16
+    m, rt = torch.tensor(mask, dtype=_TD[dtype]), torch.tensor(
+        r, dtype=_TD[dtype])
+    new, old = (cls(op_p, **kw) for cls in (tm.MultigridPreconditioner,
+                                            _FormerApplies))
+    assert new.n_levels == 3
+    (st_new, pv_new), (st_old, pv_old) = (mg.setup(s_p, m)
+                                          for mg in (new, old))
+    assert all(torch.equal(a, b) for a, b in zip(pv_new, pv_old))
+    assert all(torch.equal(a, b) for a, b in zip(st_new["lams"],
+                                                 st_old["lams"]))
+    assert torch.equal(new.make_M(st_new)(rt), old.make_M(st_old)(rt))
 
 
 def test_M_is_linear_and_symmetric():

@@ -147,6 +147,8 @@ def test_wrappers_refuse_other_devices_and_missing_nvcc(monkeypatch,
         ck.voxel_energies(u, torch.empty((24, 24), device="meta"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(ck, "_lib", None)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        ck.build_kernels()
+    monkeypatch.setattr(ck, "_libs", {})
+    for build in (ck.build_kernels, ck.build_element_kernels,
+                  ck.build_stencil_kernels):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build()

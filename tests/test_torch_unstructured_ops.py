@@ -261,12 +261,13 @@ def test_element_apply_rejects_bad_arguments(case, error):
 
 @pytest.mark.parametrize("name, source", [
     ("voxel_kernels", "voxel_kernels.cu"),
-    ("element_apply", "element_apply.cu")])
+    ("element_apply", "element_apply.cu"),
+    ("stencil_apply", "stencil_apply.cu")])
 def test_each_kernel_library_builds_from_its_own_source(
         name, source, tmp_path, monkeypatch):
     """Each library compiles its own source alone, under a name keyed by
-    that source only: the element kernel neither enters nor re-keys the
-    voxel library (its key is the hash of voxel_kernels.cu as before)."""
+    that source only: no kernel enters or re-keys another's library (the
+    voxel library's key is the hash of voxel_kernels.cu as before)."""
     import hashlib
 
     commands = []
@@ -286,9 +287,8 @@ def test_each_kernel_library_builds_from_its_own_source(
     src = ck._CSRC / source
     key = hashlib.sha256(src.name.encode() + src.read_bytes()).hexdigest()
     assert sources == [src] and so.name == f"{name}_{key[:16]}.so"
-    other = {"voxel_kernels": "element_apply",
-             "element_apply": "voxel_kernels"}[name]
-    assert ck.library_path(other)[1] != so
+    assert all(ck.library_path(other)[1] != so
+               for other in ck._LIBRARIES if other != name)
 
 
 def test_native_search_equals_ckdtree():
