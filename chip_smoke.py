@@ -11,8 +11,8 @@ Phases, each of which asserts and prints a line:
               37x19x11, 128^3 and the thin ragged grids 1x2x3 and 33x1x65,
               in float64, float32 and bfloat16; two launches on the same
               input must give bitwise-equal output; at 128^3 float32 the
-              kernel, the plain version and (matvec) the simple fp32 kernel
-              it replaced are timed in this run (CUDA events around
+              kernel and the plain version are timed in this run (CUDA
+              events around
               replays of a CUDA graph of 10 calls, so no host time is
               counted; median of 2 x 30 replays, interleaved), and at 128^3
               bfloat16 the matvec and its plain version, as the multigrid
@@ -395,19 +395,13 @@ def check_kernels(pt, ck):
 
 
 def time_kernels(ck, op, u, scale):
-    """Kernel, plain and yardstick times at 128^3 float32, with bounds."""
+    """Kernel and plain times at 128^3 float32, with bounds."""
     nels, nn = scale.numel(), u.numel() // 3
     mv = ck.voxel_matvec(u, scale, op.ke)
-    simple = ck.voxel_matvec_simple_f32(u, scale, op.ke)
     plain = ck.voxel_matvec_plain(u, scale, op.ke)
-    ref = float(plain.abs().max())
     err = float((mv - plain).abs().max())
-    err_simple = float((simple - plain).abs().max())
-    assert err_simple <= 1e-5 * ref, err_simple
-    ms, simple_ms = interleaved_ms([
+    ms, plain_ms = interleaved_ms([
         lambda: ck.voxel_matvec(u, scale, op.ke),
-        lambda: ck.voxel_matvec_simple_f32(u, scale, op.ke)])
-    plain_ms, = interleaved_ms([
         lambda: ck.voxel_matvec_plain(u, scale, op.ke)])
     mv_bound = bound(2 * u.nbytes + scale.nbytes + op.ke.nbytes,
                      3 * 2 * 576 * nels, 24 * nels + 21 * nn)
@@ -418,18 +412,16 @@ def time_kernels(ck, op, u, scale):
         lambda: ck.voxel_energies_plain(u, op.ke)])
     en_bound = bound(u.nbytes + en.nbytes + op.ke.nbytes,
                      3 * 2 * 576 * nels, 48 * nels)
-    for name, k_ms, p_ms, (b_ms, b_by), extra in [
-        ("voxel_matvec", ms, plain_ms, mv_bound,
-         f", simple fp32 kernel {simple_ms:.4f} ms"),
-        ("voxel_energies", en_ms, en_plain_ms, en_bound, ""),
+    for name, k_ms, p_ms, (b_ms, b_by) in [
+        ("voxel_matvec", ms, plain_ms, mv_bound),
+        ("voxel_energies", en_ms, en_plain_ms, en_bound),
     ]:
         phase("kernels", f"{name} 128^3 float32: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms{extra}; bound {b_ms:.4f} ms "
+              f"plain {p_ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}), {100 * b_ms / k_ms:.1f}% of bound")
     return {
         "voxel_matvec": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             simple_ms=simple_ms, bound_ms=mv_bound[0],
-                             bound_by=mv_bound[1]),
+                             bound_ms=mv_bound[0], bound_by=mv_bound[1]),
         "voxel_energies": dict(max_abs_err=en_err, ms=en_ms,
                                plain_ms=en_plain_ms, bound_ms=en_bound[0],
                                bound_by=en_bound[1], library_ms=None),
@@ -1356,8 +1348,8 @@ def check_unstructured_ops(pt, ck):
         scale = op.youngs_modulus(rho)
         A = lambda v: op.apply(v, scale, mask)  # noqa: E731
         Binv = op.block_diagonal_inverse(scale, mask)
-        state = amg.setup(scale, mask, Binv, A)
-        M = lambda v: amg.apply(v, A, Binv, state, mask)  # noqa: E731
+        state = amg.setup(scale, mask)
+        M = lambda v: amg.apply(v, A, state, mask)  # noqa: E731
         out = {
             "apply_K": op.apply_K(r, scale), "apply": A(r),
             "diagonal": op.diagonal(scale, mask),
@@ -1623,7 +1615,7 @@ def run_main_unstructured(pt, ck, n=44, iterations=5):
     setup_rel = max(max_rel(a, b) for a, b in
                     zip(state["blocks"] + state["L"],
                         again["blocks"] + again["L"]))
-    M = lambda v: amg.apply(v, A, None, state, mask)  # noqa: E731
+    M = lambda v: amg.apply(v, A, state, mask)  # noqa: E731
     same = torch.equal(A(r), A(r)) and torch.equal(M(r), M(r))
     apply_ms, how_a = replay_or_event_ms(lambda: A(r))
     cycle_ms, how_m = replay_or_event_ms(lambda: M(r))

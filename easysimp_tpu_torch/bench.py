@@ -32,11 +32,10 @@ the measurement once, in this process, with no retry); added `hardware`
 (the card's `nvidia-smi` name and power limit, or "cpu") and `device`.
 
 The iteration is the port's `VoxelStep` (`setup(design, pvecs,
-prev_state)` and `step(...)`), driven by the bench's host schedule
-(`_Stepper`): a preconditioner setup every BENCH_SETUP_EVERY iterations,
-in full every BENCH_FULL_SETUP_EVERY and light in between, a CG watchdog
-that forces a full setup when the last solve's count exceeds
-max(1.5 b, b + 3) of the count b after the last full setup, an 8-slot
+prev_state)` and `step(...)`), driven by the host schedule that
+`simp_optimize` runs (opt/schedule.py `Stepper`, here `_Stepper`): a
+preconditioner setup every BENCH_SETUP_EVERY iterations, in full every
+BENCH_FULL_SETUP_EVERY and light in between, the CG watchdog, an 8-slot
 recycle ring and the adaptive CG tolerance clip(0.05 change, cg_rtol,
 cg_rtol_max).
 
@@ -89,6 +88,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from easysimp_tpu_torch.opt.schedule import Stepper, forcing_rtol
 
 __all__ = ["run_measurement", "run_unstructured", "run_sharded_evidence",
            "phase_breakdown", "Measurement"]
@@ -177,101 +178,18 @@ def _build_problem(nels, dtype, device="cuda"):
     return grid, vs, params
 
 
-class _Stepper:
-    """The bench's per-iteration host schedule over a `VoxelStep`
-    (bench.py:564-759): setup cadence with light setups between full ones,
-    the CG watchdog, the recycle ring and the adaptive CG tolerance, kept
-    as a device scalar in the step's dtype."""
+class _Stepper(Stepper):
+    """The port's voxel host schedule (opt/schedule.py, as `simp_optimize`
+    steps it; bench.py:564-759) with the CLI's knobs: a full setup every
+    BENCH_FULL_SETUP_EVERY (4) iterations, the recycle ring stored in
+    BENCH_RECYCLE_DTYPE (the step's dtype)."""
 
     def __init__(self, vs, params, *, recycle_k, adaptive, setup_every):
-        from easysimp_tpu_torch.config import resolve_dtype
-        from easysimp_tpu_torch.ops.cg import recycle_init
-
-        self.vs, self.params = vs, params
-        self.adaptive = adaptive
-        self.setup_every = setup_every
-        self.full_every = int(os.environ.get("BENCH_FULL_SETUP_EVERY", "4"))
-        self.light_ok = (self.full_every > 1
-                         and vs.precond.supports_light_setup)
-        self.rtol_now = (torch.tensor(params.cg_rtol_max, dtype=vs.dtype,
-                                      device=vs.device)
-                         if adaptive else None)
-        self.recycle_k = recycle_k
-        recycle_dtype = os.environ.get("BENCH_RECYCLE_DTYPE", "")
-        self.recycle_dtype = (resolve_dtype(recycle_dtype, vs.device)
-                              if recycle_dtype else None)
-        self.design, self.u = vs.design0, vs.u0
-        self.pvecs = vs.precond.init_power_vectors()
-        self.rhist = (recycle_init(recycle_k, self.u, dtype=self.recycle_dtype)
-                      if recycle_k > 1 else None)
-        self.state = None
-        self.steps_since_setup = 0
-        self.steps_since_full = 0
-        self.cg_baseline = None
-        self.last_cg = None
-        self.pending_cg = None
-
-    def cold_power(self):
-        """The one-time cold lambda_max estimation on the current design."""
-        self.pvecs = self.vs.power_init(self.design)
-
-    def reset_recycle(self):
-        """Re-seed the ring from the current warm start (after the
-        continuation prolongs the state onto a new grid)."""
-        if self.recycle_k > 1:
-            from easysimp_tpu_torch.ops.cg import recycle_init
-
-            self.rhist = recycle_init(self.recycle_k, self.u,
-                                      dtype=self.recycle_dtype)
-
-    def one_step(self):
-        """One SIMP iteration; returns (energy as a device scalar, CG
-        iterations).  Mutates the carried trajectory state."""
-        from easysimp_tpu_torch.ops.cg import recycle_push
-        from easysimp_tpu_torch.tracing import count
-
-        vs, params = self.vs, self.params
-        if self.pending_cg is not None:
-            # the previous iteration's CG count, read at the start of this
-            # one as bench.py reads it
-            self.last_cg, self.pending_cg = self.pending_cg, None
-            if self.cg_baseline is None:
-                self.cg_baseline = self.last_cg
-        # additive slack: at CG counts of ~2, 1.5x alone would refresh on
-        # one extra iteration
-        degraded = (self.last_cg is not None and self.cg_baseline
-                    and self.last_cg > max(1.5 * self.cg_baseline,
-                                           self.cg_baseline + 3))
-        if self.state is None or degraded \
-                or self.steps_since_setup >= self.setup_every:
-            # light (fine-half) setup unless the full cadence expired, CG
-            # degraded or there is no state yet; the watchdog's baseline
-            # pins to the last full setup
-            if (self.light_ok and self.state is not None and not degraded
-                    and self.steps_since_full < self.full_every):
-                self.state, self.pvecs = vs.setup(self.design, self.pvecs,
-                                                  self.state)
-            else:
-                if degraded:
-                    count("setup.watchdog")
-                self.state, self.pvecs = vs.setup(self.design, self.pvecs)
-                self.steps_since_full = 0
-                self.cg_baseline = None
-            self.steps_since_setup = 0
-        self.steps_since_setup += 1
-        self.steps_since_full += 1
-        out = vs.step(self.design, self.u, self.state, recycle=self.rhist,
-                      rtol=self.rtol_now)
-        self.pending_cg = out.cg_iters
-        if self.rhist is not None:
-            self.rhist = recycle_push(self.rhist, out.u)
-        if self.adaptive:
-            change = (out.new_design - self.design).abs().max()
-            self.rtol_now = torch.clamp(
-                params.cg_forcing_coeff * change, min=params.cg_rtol,
-                max=params.cg_rtol_max).to(vs.dtype)
-        self.design, self.u = out.new_design, out.u
-        return out.energy, out.cg_iters
+        super().__init__(
+            vs, params, recycle_k=recycle_k, adaptive=adaptive,
+            setup_every=setup_every,
+            full_every=int(os.environ.get("BENCH_FULL_SETUP_EVERY", "4")),
+            recycle_dtype=os.environ.get("BENCH_RECYCLE_DTYPE", ""))
 
 
 def _continuation_init(nels, dtype, device, *, recycle_k, adaptive,
@@ -629,16 +547,9 @@ def run_unstructured(spec, device="cuda") -> UnstructuredRun:
     log(f"build (host element matrices, neighbour search, AMG "
         f"aggregation): {time.perf_counter() - t0:.1f}s")
     adaptive = forcing == "adaptive"
-
-    def forcing_rtol(change_prev):
-        if change_prev is None:
-            return params.cg_rtol_max
-        return min(params.cg_rtol_max,
-                   max(params.cg_rtol, params.cg_forcing_coeff * change_prev))
-
     design, u = us.design0, us.u0
     rhist = recycle_init(recycle_k, u) if recycle_k > 1 else None
-    rtol_now = forcing_rtol(None) if adaptive else None
+    rtol_now = forcing_rtol(params, None) if adaptive else None
     energies, cgs = [], []
 
     def one_step():
@@ -648,7 +559,7 @@ def run_unstructured(spec, device="cuda") -> UnstructuredRun:
         if rhist is not None:
             rhist = recycle_push(rhist, u)
         if adaptive:
-            rtol_now = forcing_rtol(float(change))
+            rtol_now = forcing_rtol(params, float(change))
         energies.append(float(energy))
         cgs.append(int(out[9]))
 
@@ -718,21 +629,20 @@ def unstructured_phase_breakdown(us, free_mask, design) -> list:
     phys = us.filt.density_filter(design) if us.use_density_filter \
         else design
     scale = op.youngs_modulus(phys)
-    Binv = op.block_diagonal_inverse(scale, free_mask)
 
     def A(v):
         return op.apply(v, scale, free_mask)
 
-    state = amg.setup(scale, free_mask, Binv, A)
+    state = amg.setup(scale, free_mask)
     r = torch.ones(us.mesh.n_dofs, dtype=us.dtype, device=device) * free_mask
     graph, eager = "CUDA-graph replays", "CUDA events, eager"
     if device.type != "cuda":
         graph = eager = "wall"
     rows = [
         ("AMG setup (per SIMP iter)",
-         lambda: amg.setup(scale, free_mask, Binv, A), eager),
+         lambda: amg.setup(scale, free_mask), eager),
         ("V-cycle apply (per CG iter)",
-         lambda: amg.apply(r, A, Binv, state, free_mask), graph),
+         lambda: amg.apply(r, A, state, free_mask), graph),
         ("matvec K@u (per CG iter)", lambda: A(r), graph),
     ]
     out = [(name, _time_ms(fn, device, how == "CUDA-graph replays"), how)

@@ -82,15 +82,13 @@
 // 2. float64 storage: the first, simple kernels (voxel_matvec_kernel,
 //    voxel_energies_kernel), on the FP64 CUDA cores.  float64 runs only in
 //    tests and in a small trajectory; its tensor-core path (DMMA) is later
-//    work.  voxel_matvec_simple_f32 keeps the same simple design in fp32 as
-//    a yardstick for the tensor-core kernel: only chip_smoke.py calls it.
-//    Node-centric matvec: one thread per output node gathers from its <= 8
-//    incident elements (out-of-range elements count as E = 0), 600 FMAs per
-//    node with every ke coefficient taken from __constant__ memory by a
-//    compile-time index; element-centric energies over the upper triangle
-//    of the symmetric ke, from the centred element dofs as above.  ke is
-//    copied to constant memory on the launch stream before each launch,
-//    stream-ordered with the kernel; launches with different ke on
+//    work.  Node-centric matvec: one thread per output node gathers from its
+//    <= 8 incident elements (out-of-range elements count as E = 0), 600
+//    FMAs per node with every ke coefficient taken from __constant__ memory
+//    by a compile-time index; element-centric energies over the upper
+//    triangle of the symmetric ke, from the centred element dofs as above.
+//    ke is copied to constant memory on the launch stream before each
+//    launch, stream-ordered with the kernel; launches with different ke on
 //    different streams at once would race, and the package launches on the
 //    current stream only.
 
@@ -103,7 +101,6 @@ namespace {
 constexpr int NKE = 24 * 24;
 
 __constant__ double c_ke64[NKE];
-__constant__ float c_ke32[NKE];
 
 // VTK / Ferrite hexahedron corner offsets (easysimp_tpu/ops/elements.py:39).
 __host__ __device__ constexpr int corner_x(int c) {
@@ -124,16 +121,9 @@ template <typename C> struct Ke;
 template <> struct Ke<double> {
   __device__ static double at(int k) { return c_ke64[k]; }
 };
-template <> struct Ke<float> {
-  __device__ static float at(int k) { return c_ke32[k]; }
-};
 
 template <typename T, typename C> __device__ inline C load(const T* p) {
   return static_cast<C>(*p);
-}
-template <> __device__ inline float load<__nv_bfloat16, float>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
 }
 template <typename T, typename C> __device__ inline T store(C v) {
   return static_cast<T>(v);
@@ -876,11 +866,6 @@ cudaError_t load_ke<double>(const double* ke, cudaStream_t stream) {
   return cudaMemcpyToSymbolAsync(c_ke64, ke, NKE * sizeof(double), 0,
                                  cudaMemcpyDeviceToDevice, stream);
 }
-template <>
-cudaError_t load_ke<float>(const float* ke, cudaStream_t stream) {
-  return cudaMemcpyToSymbolAsync(c_ke32, ke, NKE * sizeof(float), 0,
-                                 cudaMemcpyDeviceToDevice, stream);
-}
 
 template <typename T, typename C>
 int launch_matvec_simple(const void* u, const void* scale, const void* ke,
@@ -1022,12 +1007,6 @@ int voxel_matvec_bf16(const void* u, const void* scale, const void* ke,
                       void* out, int nx, int ny, int nz, void* stream) {
   return launch_matvec_tc<__nv_bfloat16>(u, scale, ke, out, nx, ny, nz,
                                          stream);
-}
-// The simple fp32 design, kept as a yardstick for voxel_matvec_f32.
-int voxel_matvec_simple_f32(const void* u, const void* scale, const void* ke,
-                            void* out, int nx, int ny, int nz, void* stream) {
-  return launch_matvec_simple<float, float>(u, scale, ke, out, nx, ny, nz,
-                                            stream);
 }
 
 int voxel_energies_f64(const void* u, const void* ke, void* out, int nx,

@@ -291,8 +291,8 @@ def _sa_structure(p_rows, p_cols, agg, n_agg, n_fine):
 class MultilevelAMG:
     """Recursive RBM-aggregation preconditioner for UnstructuredOperator.
 
-    Host-side constants are built in __init__; `setup(scale, free_mask,
-    Binv, A)` runs once per SIMP iteration (returns the per-level operator
+    Host-side constants are built in __init__; `setup(scale, free_mask)`
+    runs once per SIMP iteration (returns the per-level operator
     blocks, smoother data, and the coarsest Cholesky factor), `apply(...)`
     is the per-CG-iteration V-cycle.
 
@@ -740,13 +740,11 @@ class MultilevelAMG:
         return L, dinv_sqrt
 
     @spanned("amg.setup")
-    def setup(self, scale, free_mask, Binv=None, A=None):
+    def setup(self, scale, free_mask):
         """Once per SIMP iteration.  Returns the opaque state dict for
         `apply`: per-level operator blocks + l1-regularized block-Jacobi
         smoother inverses (lam_max(B^-1 A) <= 1 by construction) and the
-        coarsest Cholesky factor.  `Binv`/`A` are accepted for API
-        stability; smoothing uses the l1 blocks, not the plain
-        block-Jacobi inverse.  With smooth_prolongator the per-level
+        coarsest Cholesky factor.  With smooth_prolongator the per-level
         smoothed transfers P_s (density-dependent) join the state."""
         Binv0 = self._fine_l1_binv(scale, free_mask)
         if self.smooth_p:
@@ -847,11 +845,10 @@ class MultilevelAMG:
         return self._chebyshev(Bapply, Aapply, r, z, deg)
 
     @spanned("amg.vcycle")
-    def apply(self, r, A, Binv, state, free_mask):
+    def apply(self, r, A, state, free_mask):
         """Symmetric multilevel cycle: Chebyshev l1-block-Jacobi
-        pre-smooth, recursive coarse correction, matching post-smooth.
-        `Binv` is accepted for API stability; smoothing uses the l1
-        blocks in `state`."""
+        pre-smooth, recursive coarse correction, matching post-smooth,
+        with the l1 blocks in `state`."""
         B0 = state["Binv0"]
 
         def Bapply(v):

@@ -73,7 +73,6 @@ __all__ = [
     "voxel_energies",
     "voxel_energies_plain",
     "centre_element_dofs",
-    "voxel_matvec_simple_f32",
     "element_apply",
     "element_apply_plain",
     "stencil_apply",
@@ -271,7 +270,7 @@ def build_kernels():
     """Build (if needed) and load the voxel kernels' shared library,
     `_build/voxel_kernels_<hash>.so`.  Raises on any failure."""
     matvec = [_PTR] * 4 + [_INT] * 3 + [_PTR]
-    signatures = {"voxel_matvec_simple_f32": matvec}
+    signatures = {}
     for sfx in _SUFFIX.values():
         signatures[f"voxel_matvec_{sfx}"] = matvec
         signatures[f"voxel_energies_{sfx}"] = [_PTR] * 3 + [_INT] * 3 + [_PTR]
@@ -360,16 +359,6 @@ def voxel_matvec(u, scale, ke):
     out = _launch_matvec(f"voxel_matvec_{_SUFFIX[u.dtype]}", u, scale, ke)
     count(_COUNTER["voxel_matvec"][u.dtype])
     return out
-
-
-def voxel_matvec_simple_f32(u, scale, ke):
-    """The first, simple float32 matvec kernel (CUDA cores, one thread per
-    node), kept only as a yardstick for `voxel_matvec`: `chip_smoke.py`
-    times the two in the same run.  CUDA float32 tensors only."""
-    if u.device.type != "cuda" or u.dtype != torch.float32:
-        raise ValueError("voxel_matvec_simple_f32 takes CUDA float32 "
-                         f"tensors, got {u.dtype} on {u.device}")
-    return _launch_matvec("voxel_matvec_simple_f32", u, scale, ke)
 
 
 def voxel_energies(u, ke):

@@ -40,8 +40,9 @@ Multigrid carries state across iterations (easysimp_tpu/opt/optimize.py
 :720-819): per-level power vectors, estimated cold once before the loop and
 refreshed by every setup; and the V-cycle state, rebuilt every
 `mg_setup_every` iterations (in full every `mg_full_setup_every`, the
-fine half only in between) or at once when the last solve's CG count grew
-past 1.5x (and +3) of the count after the last full setup.  The reference
+fine half only in between) or at once when the CG watchdog fires.  That
+host schedule, with the recycle ring and the adaptive CG tolerance, is
+opt/schedule.py's `Stepper`, which the bench steps too.  The reference
 runs that as separate programs; here it is one eager loop.
 """
 
@@ -59,13 +60,7 @@ from ..bcs import build_free_mask
 from ..config import resolve_dtype
 from ..grids import VoxelGrid
 from ..loads import build_load_field, voxel_body_force
-from ..ops.cg import (
-    _vdot,
-    cg_solve,
-    recycle_deflate,
-    recycle_init,
-    recycle_push,
-)
+from ..ops.cg import _vdot, cg_solve, recycle_deflate
 from ..ops.filters import create_filter_cache
 from ..ops.multigrid import MultigridPreconditioner
 from ..ops.oc import (
@@ -86,6 +81,7 @@ from ..utils.terminal import (
     print_success,
     print_warning,
 )
+from .schedule import Stepper
 
 __all__ = ["simp_optimize", "build_voxel_step", "VoxelStep"]
 
@@ -202,8 +198,8 @@ class VoxelStep:
     setup, or multigrid's light one on top of `prev_state`, due every
     `setup_every` iterations.  `step(design, u_prev, state, recycle=None,
     rtol=None)` runs one full SIMP iteration with that state; `solve(design,
-    pvecs)` is the final re-analysis; `metrics` the convergence and
-    diagnostic reductions."""
+    pvecs)` is the final re-analysis; `metrics` the diagnostic reductions
+    (the design change comes from opt/schedule.py's `Stepper`)."""
 
     grid: VoxelGrid
     op: VoxelOperator
@@ -363,12 +359,11 @@ def build_voxel_step(grid, loads, boundary_conditions,
                           sol.iterations, sol.residual_norm, bisect_iters,
                           bisect_verr, fsens)
 
-    def metrics(new_design, design, phys, u, fsens):
-        """(change, grayness, max_disp, frac_neg, mean_abs, max_abs)."""
-        change = (new_design - design).abs().max()
+    def metrics(phys, u, fsens):
+        """(grayness, max_disp, frac_neg, mean_abs, max_abs)."""
         grayness = ((phys > 0.1) & (phys < 0.9)).to(dtype).mean()
         max_disp = u.abs().max()
-        return (change, grayness, max_disp, *sensitivity_health(fsens))
+        return (grayness, max_disp, *sensitivity_health(fsens))
 
     def setup(design, pvecs, prev_state=None):
         """Preconditioner setup on the design's moduli: full, or
@@ -474,7 +469,13 @@ def simp_optimize(grid, loads, boundary_conditions,
     vs = build_voxel_step(grid, loads, boundary_conditions, params,
                           acceleration_data, device=device, mesh=mesh)
     total_volume, elem_vol = vs.total_volume, vs.elem_vol
-    design, u = vs.design0, vs.u0
+    # The host schedule (opt/schedule.py): setup cadence, CG watchdog,
+    # recycle ring and adaptive forcing, as the bench runs it.
+    st = Stepper(vs, params, recycle_k=params.cg_recycle_k,
+                 adaptive=params.cg_forcing == "adaptive",
+                 setup_every=vs.setup_every,
+                 full_every=params.mg_full_setup_every,
+                 recycle_dtype=params.cg_recycle_dtype)
     # Coarse-to-fine continuation: replace the uniform initial design with
     # the prolonged result of a half-resolution run of the same problem
     # (opt/continuation.py).  Resuming a checkpoint supersedes it: the
@@ -485,27 +486,8 @@ def simp_optimize(grid, loads, boundary_conditions,
         design, u = continuation_init(grid, loads, boundary_conditions,
                                       params, acceleration_data,
                                       device=vs.device)
-        design, u = vs.place(design, "cell"), vs.place(u, "node")
-
-    # Subspace-recycled CG: ring buffer of the last k solutions, whose
-    # deltas deflate the warm-start residual (ops/cg.py).
-    recycle_k = params.cg_recycle_k
-    rhist = None
-    recycle_dtype = (resolve_dtype(params.cg_recycle_dtype, vs.device)
-                     if params.cg_recycle_dtype else None)
-    if recycle_k > 1:
-        rhist = recycle_init(recycle_k, u, dtype=recycle_dtype)
-
-    # Adaptive CG forcing: the tolerance follows how fast the design moves.
-    adaptive_forcing = params.cg_forcing == "adaptive"
-
-    def _forcing_rtol(change_prev):
-        if change_prev is None:
-            return params.cg_rtol_max
-        return min(params.cg_rtol_max,
-                   max(params.cg_rtol, params.cg_forcing_coeff * change_prev))
-
-    rtol_now = _forcing_rtol(None) if adaptive_forcing else None
+        st.design, st.u = vs.place(design, "cell"), vs.place(u, "node")
+        st.reset_recycle()
 
     energy_history: list[float] = []
     volume_history: list[float] = []
@@ -513,13 +495,13 @@ def simp_optimize(grid, loads, boundary_conditions,
     cg_history: list[int] = []
     checkpoint_triggered = [False] * len(params.tolerance_checkpoints)
     start_iteration = 1
-    pvecs = None
+    power_restored = False
     if resume_from:
         from .checkpoint import load_checkpoint, restore_triggered
 
         saved = load_checkpoint(resume_from)
-        design = vs.place(saved["design"], "cell")
-        u = vs.place(saved["u"], "node")
+        st.design = vs.place(saved["design"], "cell")
+        st.u = vs.place(saved["u"], "node")
         start_iteration = saved["iteration"] + 1
         energy_history = saved["energy_history"]
         volume_history = saved["volume_history"]
@@ -527,45 +509,36 @@ def simp_optimize(grid, loads, boundary_conditions,
         cg_history = saved["cg_history"]
         checkpoint_triggered = restore_triggered(
             saved["checkpoint_triggered"], params.tolerance_checkpoints)
-        saved_pvecs = saved["pvecs"]
-        starts = vs.precond.init_power_vectors()
+        saved_pvecs, starts = saved["pvecs"], st.pvecs
         if starts and [tuple(v.shape) for v in saved_pvecs] == \
                 [tuple(v.shape) for v in starts]:
             # each level as its start vector lies (sharded or on the
             # first device)
-            pvecs = tuple(
+            st.pvecs = tuple(
                 vs.place(v, "node") if not isinstance(s, torch.Tensor)
                 else torch.as_tensor(v, dtype=vs.dtype, device=vs.device)
                 for v, s in zip(saved_pvecs, starts))
-        if rhist is not None:
-            saved_rec = saved["recycle"]
-            if saved_rec is not None and saved_rec.shape[0] == recycle_k:
-                rhist = vs.place(saved_rec, "node").to(
-                    recycle_dtype or vs.dtype)
-            else:
-                # the checkpoint predates recycling (or has another k): seed
-                # the ring with the restored warm start
-                rhist = recycle_init(recycle_k, u, dtype=recycle_dtype)
-        if adaptive_forcing and change_history:
+            power_restored = True
+        saved_rec = saved["recycle"]
+        if st.rhist is not None and saved_rec is not None \
+                and saved_rec.shape[0] == st.recycle_k:
+            st.rhist = vs.place(saved_rec, "node").to(
+                st.recycle_dtype or vs.dtype)
+        else:
+            # the checkpoint predates recycling (or has another k): seed
+            # the ring with the restored warm start
+            st.reset_recycle()
+        if change_history:
             # a resumed run restarts the forcing schedule from the restored
             # change
-            rtol_now = _forcing_rtol(change_history[-1])
+            st.force(change_history[-1])
     if params.tolerance_checkpoints:
         print_info(
             f"Tolerance checkpoints enabled: {params.tolerance_checkpoints}")
-
-    # Preconditioner state: the carried power vectors (multigrid's cold
-    # estimation once, here, unless a checkpoint brought them) and the
-    # state with its setup cadence and the CG watchdog.
-    if pvecs is None:
-        pvecs = vs.power_init(design)
-    light_ok = (vs.precond.supports_light_setup
-                and params.mg_full_setup_every > 1)
-    state = None
-    last_setup_it = 0
-    last_full_it = 0
-    cg_baseline = None        # CG count of the first solve after a full setup
-    cg_since_refresh = None   # CG count of the most recent solve
+    # multigrid's cold estimation of the power vectors, once, unless a
+    # checkpoint brought them
+    if not power_restored:
+        st.cold_power()
 
     iteration_seconds: list[float] = []   # of this run's own iterations
     converged = False
@@ -579,13 +552,13 @@ def simp_optimize(grid, loads, boundary_conditions,
             from .checkpoint import save_checkpoint
 
             save_checkpoint(
-                params.checkpoint_path, design=_to_numpy(design),
-                u=_to_numpy(u), iteration=it, energy_history=energy_history,
+                params.checkpoint_path, design=_to_numpy(st.design),
+                u=_to_numpy(st.u), iteration=it, energy_history=energy_history,
                 volume_history=volume_history, change_history=change_history,
                 cg_history=cg_history,
                 checkpoint_triggered=checkpoint_triggered,
-                pvecs=[_to_numpy(v) for v in pvecs],
-                recycle=_to_numpy(rhist) if rhist is not None else None)
+                pvecs=[_to_numpy(v) for v in st.pvecs],
+                recycle=None if st.rhist is None else _to_numpy(st.rhist))
 
     profiler = None
     for it in range(start_iteration, params.max_iterations + 1):
@@ -593,30 +566,9 @@ def simp_optimize(grid, loads, boundary_conditions,
         if params.profile_dir and it == 2:
             profiler = _start_profiler(vs.device)
         t0 = time.perf_counter()
-        # Refresh the preconditioner every setup_every iterations (CG
-        # always applies the current operator), at once when the last solve
-        # degraded; between multigrid's full setups only the fine half.
-        stale_steps = it - last_setup_it if state is not None else 0
-        degraded = (cg_since_refresh is not None and cg_baseline
-                    and cg_since_refresh > max(1.5 * cg_baseline,
-                                               cg_baseline + 3))
-        if state is None or stale_steps >= vs.setup_every or degraded:
-            if (light_ok and state is not None and not degraded
-                    and it - last_full_it < params.mg_full_setup_every):
-                state, pvecs = vs.setup(design, pvecs, state)
-            else:
-                if degraded:
-                    count("setup.watchdog")
-                state, pvecs = vs.setup(design, pvecs)
-                last_full_it = it
-                cg_baseline = None
-            last_setup_it = it
-        out = vs.step(design, u, state, recycle=rhist, rtol=rtol_now)
-        if rhist is not None:
-            rhist = recycle_push(rhist, out.u)
-        (change, grayness, max_disp, frac_neg, _mean_abs, max_abs) = \
-            vs.metrics(out.new_design, design, out.phys, out.u, out.fsens)
-        u = out.u
+        out, change = st.advance()
+        grayness, max_disp, frac_neg, _mean_abs, max_abs = \
+            vs.metrics(out.phys, out.u, out.fsens)
         if profiler is not None and it >= 4:
             _stop_profiler(profiler, vs.device, params.profile_dir)
             profiler = None
@@ -624,16 +576,11 @@ def simp_optimize(grid, loads, boundary_conditions,
         energy = float(out.energy)
         volume = float(out.volume)
         change = float(change)
-        if adaptive_forcing:
-            rtol_now = _forcing_rtol(change)
         vol_frac = volume / total_volume
         energy_history.append(energy)
         volume_history.append(volume)
         change_history.append(change)
         cg_history.append(out.cg_iters)
-        cg_since_refresh = out.cg_iters
-        if cg_baseline is None:
-            cg_baseline = cg_since_refresh
         # float() above waited for the device: this is the iteration's time
         iteration_seconds.append(time.perf_counter() - t0)
 
@@ -670,7 +617,7 @@ def simp_optimize(grid, loads, boundary_conditions,
                     print_info(
                         f"Tolerance checkpoint {cp} reached at iteration {it}")
                     _export_intermediate(
-                        vs, params, out.phys, u, energy, volume, it,
+                        vs, params, out.phys, out.u, energy, volume, it,
                         energy_history, volume_history,
                         name=f"final_results_{int(round(cp * 100)):02d}tol")
 
@@ -679,10 +626,9 @@ def simp_optimize(grid, loads, boundary_conditions,
                 and it % params.export_interval == 0
                 and params.export_path):
             _export_intermediate(
-                vs, params, out.phys, u, energy, volume, it,
+                vs, params, out.phys, out.u, energy, volume, it,
                 energy_history, volume_history, name=f"iter_{it:04d}")
 
-        design = out.new_design
         maybe_save_checkpoint(it)
         if change < params.tolerance:
             print_success(f"Converged after {it} iterations")
@@ -693,7 +639,7 @@ def simp_optimize(grid, loads, boundary_conditions,
         _stop_profiler(profiler, vs.device, params.profile_dir)
 
     # ----- final analysis (Optimization.jl:494-539) -------------------------
-    phys, u, final_energy = vs.solve(design, pvecs)
+    phys, u, final_energy = vs.solve(st.design, st.pvecs)
     final_energy = float(final_energy)
     final_volume = float(phys.sum()) * elem_vol
     energies = vs.gather(vs.element_energy(phys, u))

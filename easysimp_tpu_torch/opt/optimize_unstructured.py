@@ -51,6 +51,7 @@ from ..utils.terminal import (
     print_success,
     print_warning,
 )
+from .schedule import forcing_rtol
 
 __all__ = ["simp_optimize_unstructured", "build_unstructured_step",
            "UnstructuredStep"]
@@ -203,7 +204,7 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
     # diagonal.
     choice = params.preconditioner
     use_amg = choice in ("auto", "multigrid", "amg")
-    use_block_jacobi = use_amg or choice == "block_jacobi"
+    use_block_jacobi = choice == "block_jacobi"
     amg = None
     if use_amg:
         from ..ops.amg import MultilevelAMG
@@ -231,11 +232,10 @@ def build_unstructured_step(mesh, loads, boundary_conditions,
             def A(v):
                 return op.apply_lame(v, lam_f, mu_f, free_mask)
         if use_amg:
-            Binv = op.block_diagonal_inverse(scale, free_mask)
-            amg_state = amg.setup(scale, free_mask, Binv, A)
+            amg_state = amg.setup(scale, free_mask)
 
             def M(r):
-                return amg.apply(r, A, Binv, amg_state, free_mask)
+                return amg.apply(r, A, amg_state, free_mask)
         elif use_block_jacobi:
             Binv = op.block_diagonal_inverse(scale, free_mask)
 
@@ -365,16 +365,9 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
                      if params.cg_recycle_dtype else None)
     if params.cg_recycle_k > 1:
         rhist = recycle_init(params.cg_recycle_k, u, dtype=recycle_dtype)
-    # Adaptive CG forcing (inexact SIMP): same schedule as the voxel loop.
+    # Adaptive CG forcing (inexact SIMP): the voxel loop's rule, on the host.
     adaptive_forcing = params.cg_forcing == "adaptive"
-
-    def _forcing_rtol(change_prev):
-        if change_prev is None:
-            return params.cg_rtol_max
-        return min(params.cg_rtol_max,
-                   max(params.cg_rtol, params.cg_forcing_coeff * change_prev))
-
-    rtol_now = _forcing_rtol(None) if adaptive_forcing else None
+    rtol_now = forcing_rtol(params, None) if adaptive_forcing else None
     energy_history, volume_history = [], []
     change_history, cg_history = [], []
     checkpoint_triggered = [False] * len(params.tolerance_checkpoints)
@@ -404,7 +397,7 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
 
     if adaptive_forcing and change_history:
         # resumed runs restart the forcing schedule from the restored change
-        rtol_now = _forcing_rtol(change_history[-1])
+        rtol_now = forcing_rtol(params, change_history[-1])
 
     def _maybe_save_checkpoint(it, design, u):
         if params.checkpoint_interval > 0 and params.checkpoint_path and \
@@ -437,7 +430,7 @@ def simp_optimize_unstructured(mesh, loads, boundary_conditions,
 
         energy, volume, change = float(energy), float(volume), float(change)
         if adaptive_forcing:
-            rtol_now = _forcing_rtol(change)
+            rtol_now = forcing_rtol(params, change)
         vol_frac = volume / total_volume
         energy_history.append(energy)
         volume_history.append(volume)

@@ -151,8 +151,7 @@ def test_setup_and_apply_equal_reference(smooth):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
     A = lambda v: op.apply(v, scale, mask)
-    Binv = op.block_diagonal_inverse(scale, mask)
-    state = amg.setup(scale, mask, Binv, A)
+    state = amg.setup(scale, mask)
     assert sorted(state) == sorted(state_r)
     for got, want in zip(state["blocks"], state_r["blocks"]):
         _close(got, want, 1e-10, atol=1e-12 * float(got.abs().max()))
@@ -165,9 +164,9 @@ def test_setup_and_apply_equal_reference(smooth):
     if smooth:
         for got, want in zip(state["Ps"], state_r["Ps"]):
             _close(got, want, 1e-10, atol=1e-10)
-    z = amg.apply(f, A, Binv, state, mask)
+    z = amg.apply(f, A, state, mask)
     _close(z, z_r, 1e-9, atol=1e-9 * float(np.abs(z_r).max()))
-    assert torch.equal(z, amg.apply(f, A, Binv, state, mask))
+    assert torch.equal(z, amg.apply(f, A, state, mask))
 
 
 def test_restrict_is_the_transpose_of_prolong():
@@ -203,8 +202,8 @@ def test_vcycle_is_spd_and_beats_block_jacobi(smooth):
     Binv = op.block_diagonal_inverse(scale, mask)
     sol_bj = cg_solve(A, f, M=lambda r: op.apply_block_jacobi(Binv, r),
                       rtol=1e-10, maxiter=2000)
-    state = amg.setup(scale, mask, Binv, A)
-    M = lambda r: amg.apply(r, A, Binv, state, mask)
+    state = amg.setup(scale, mask)
+    M = lambda r: amg.apply(r, A, state, mask)
     sol_amg = cg_solve(A, f, M=M, rtol=1e-10, maxiter=2000)
     _close(sol_amg.u, sol_bj.u, 1e-6, atol=1e-8)
     assert sol_amg.iterations < sol_bj.iterations / 2, (
@@ -235,9 +234,8 @@ def test_iteration_counts_equal_reference():
 
     mesh, op, amg, mask, scale, f = _port()
     A = lambda v: op.apply(v, scale, mask)
-    Binv = op.block_diagonal_inverse(scale, mask)
-    state = amg.setup(scale, mask, Binv, A)
-    sol = cg_solve(A, f, M=lambda r: amg.apply(r, A, Binv, state, mask),
+    state = amg.setup(scale, mask)
+    sol = cg_solve(A, f, M=lambda r: amg.apply(r, A, state, mask),
                    rtol=1e-10, maxiter=2000)
     assert sol.iterations == int(sol_r.iterations)
     _close(sol.u, sol_r.u, 1e-7, atol=1e-9)
@@ -255,7 +253,7 @@ def test_deep_hierarchy_matches_twolevel_solution():
     for amg in (two, deep):
         state = amg.setup(scale, mask)
         sols.append(cg_solve(
-            A, f, M=lambda r: amg.apply(r, A, None, state, mask),
+            A, f, M=lambda r: amg.apply(r, A, state, mask),
             rtol=1e-10, maxiter=2000))
     _close(sols[1].u, sols[0].u, 1e-6, atol=1e-8)
     assert sols[1].iterations < 3 * sols[0].iterations
@@ -275,7 +273,7 @@ def test_float32_at_1e9_contrast_stays_finite(smooth):
     for t in (*state["blocks"], *state["Binvs"], state["Binv0"],
               *state["L"]):
         assert bool(torch.isfinite(t).all())
-    sol = cg_solve(A, f, M=lambda r: amg.apply(r, A, None, state, mask),
+    sol = cg_solve(A, f, M=lambda r: amg.apply(r, A, state, mask),
                    rtol=1e-5, maxiter=500)
     assert bool(torch.isfinite(sol.u).all())
     assert sol.iterations < 500

@@ -3,6 +3,7 @@
 the continuation prelude, and its command line in the voxel, unstructured
 and sharded modes (one JSON line on stdout, no jax imported)."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -125,6 +126,31 @@ def test_stepper_matches_jax(stepper_env):
     np.testing.assert_allclose([g[0] for g in got], [w[0] for w in want],
                                rtol=1e-8)
     assert float(st_p.rtol_now) == float(st_r.rtol_now) == 1e-10
+
+
+def test_simp_optimize_runs_the_bench_schedule(stepper_env, monkeypatch):
+    """`simp_optimize` steps the schedule that the bench's _Stepper steps:
+    at 16x8x8 float64 in the bench's composition, with a full setup every
+    3 (the stepper's from BENCH_FULL_SETUP_EVERY, the optimizer's from
+    mg_full_setup_every while BENCH_FULL_SETUP_EVERY says 5), bitwise-equal
+    energies and CG counts over 8 iterations."""
+    nels = (16, 8, 8)
+    grid, vs, params = bench_p._build_problem(nels, "float64", "cpu")
+    st = bench_p._Stepper(vs, params, recycle_k=8, adaptive=True,
+                          setup_every=1)
+    assert st.full_every == 3 and st.light_ok
+    st.cold_power()
+    want = []
+    for _ in range(8):
+        energy, cg = st.one_step()
+        want.append((float(energy), cg))
+    monkeypatch.setenv("BENCH_FULL_SETUP_EVERY", "5")
+    _, loads, bcs = bench_p._cantilever(nels)
+    res = pt.simp_optimize(grid, loads, bcs, dataclasses.replace(
+        params, cg_recycle_k=8, cg_forcing="adaptive", mg_setup_every=1,
+        mg_full_setup_every=3, max_iterations=8, tolerance=0.0),
+        device="cpu")
+    assert list(zip(res.energy_history, res.cg_iterations_history)) == want
 
 
 def test_continuation_init_matches_jax(monkeypatch):
