@@ -38,10 +38,15 @@ Phases, each of which asserts and prints a line:
               operator on its plain versions, on the card: float64 at
               16x8x8 (rtol 1e-12, also against the CPU) and at 128^3
               float32 with a bfloat16 cycle (5e-2 of max|M r|); two runs of
-              M on one r bitwise equal; at 128^3 the level layout and memory,
-              one V-cycle's device time, in all and by level, and one
-              residual stencil apply per level, kernel and plain version
-              (CUDA-graph replays);
+              M on one r bitwise equal; the V-cycle graph: M(r) replayed
+              bitwise equal to the eager cycle after a full setup and again
+              after a light one on the same hierarchy (the graph reads the
+              state refreshed in place), one capture for both, host us per
+              M call eager against replayed, on the 128^3 bfloat16 and the
+              256x128x128 float32 MBB hierarchies; at 128^3 the level
+              layout and memory, one V-cycle's device time, in all and by
+              level, and one residual stencil apply per level, kernel and
+              plain version (CUDA-graph replays);
   7. main-mg: the main path, `simp_optimize` on the 128^3 bench cantilever
               with the bench.py:543-559 composition (Galerkin multigrid,
               bfloat16 V(1,2) cycle, light setup every 4, adaptive forcing,
@@ -52,8 +57,9 @@ Phases, each of which asserts and prints a line:
               setup's power iterations) and bfloat16 > 0); then the same
               run again with a synchronising timer around each setup and
               step, for the split between setup and solve time; then 2
-              iterations under the profiler (host events): one
-              stencil_apply launch per `mg.stencil.<l>` span;
+              iterations under the profiler: the stencil_apply and
+              voxel_matvec launch counters equal the kernels in the trace,
+              replayed V-cycles included;
   8. e2e:     3 SIMP iterations of a small problem on the card through the
               kernels, against the same run with the operator's plain
               versions on the card: Jacobi float64 (also against the CPU,
@@ -772,11 +778,14 @@ def check_multigrid(pt, ck):
     torch.cuda.synchronize()
     same = torch.equal(got, again)
     with operator_on_plain_versions():
+        # a hierarchy of its own, and another state than its own: the eager
+        # cycle on the plain versions
         launches0 = ck.launches("voxel_matvec")
-        state_p, _ = mg.setup(scale, mask, pvecs)
-        want = mg.make_M(state_p)(r)
+        mg_p = MultigridPreconditioner(op, cycle_dtype=torch.bfloat16, **kw)
+        state_p, _ = mg_p.setup(scale, mask, pvecs)
+        want = mg_p.make_M(dict(state_p))(r)
         assert ck.launches("voxel_matvec") == launches0
-        del state_p
+        del state_p, mg_p
     rel = max_rel(got, want)
     ok = rel <= 5e-2 and bool(torch.isfinite(got).all())
     phase("multigrid", f"M(r) 128^3 float32, bfloat16 cycle, kernels vs "
@@ -825,8 +834,86 @@ def check_multigrid(pt, ck):
               f"{tuple(rs[lvl].shape[:3])} nodes {str(st.dtype)[6:]}: "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA-graph replays), "
               f"byte bound {b_ms:.4f} ms")
-    del state, M, got, again, want
+    del state, M, got, again, want, mg, rs
+    check_vcycle_graph("128^3 float32, bfloat16 cycle", MultigridPreconditioner(
+        op, cycle_dtype=torch.bfloat16, **kw), scale, mask, r)
+    del op, mask, scale, r
     torch.cuda.empty_cache()
+
+    # the MBB beam's float32 hierarchy at 256x128x128 (mbb256-cold)
+    from easysimp_tpu_torch.models.beam_2x1x1 import build_mbb
+    from easysimp_tpu_torch.ops.operator import VoxelOperator
+
+    nels = (256, 128, 128)
+    grid, _, bcs, _, _ = build_mbb(nels)
+    op = VoxelOperator(grid, E0=1.0, Emin=1e-6, nu=0.3, p=3.0,
+                       dtype=torch.float32, device="cuda")
+    mask = torch.as_tensor(pt.build_free_mask(grid, bcs), dtype=torch.float32,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scale = op.youngs_modulus(0.3 + 0.7 * torch.rand(
+        nels, generator=gen, device="cuda"))
+    r = torch.randn((*grid.nnodes_per_axis, 3), generator=gen,
+                    device="cuda") * mask
+    check_vcycle_graph("256x128x128 MBB float32",
+                       MultigridPreconditioner(op, **kw), scale, mask, r)
+    del op, mask, scale, r
+    torch.cuda.empty_cache()
+
+
+def check_vcycle_graph(label, mg, scale, mask, r, calls=50):
+    """The production M(r) on one card replays the V-cycle's CUDA graph:
+    on the new hierarchy `mg`, bitwise the eager cycle after a full setup,
+    and after a light setup on other moduli (the same state, refreshed in
+    place), with one capture for both; then host us per call, eager against
+    replayed (host clock, synchronised before and after `calls` calls, and
+    the enqueue alone)."""
+    from easysimp_tpu_torch.tracing import counters
+
+    def captures():
+        return counters().get("mg.graph.capture", 0)
+
+    c0 = captures()
+    state, pvecs = mg.setup(scale, mask, mg.power_init(scale, mask))
+    M = mg.make_M(state)
+    first = M(r)                             # eager, then the capture
+    z_full = M(r)                            # a replay
+    eager_full = mg._cycle(state, r)
+    scale2 = scale * (1.0 + 0.25 * torch.rand_like(scale))
+    light, _ = mg.setup_light(scale2, mask, pvecs, state)
+    assert light is state
+    z_light = mg.make_M(light)(r)
+    eager_light = mg._cycle(light, r)
+    torch.cuda.synchronize()
+    # M returns tensors of its own: the later replay left z_full as it was
+    ok = (torch.equal(first, eager_full) and torch.equal(z_full, eager_full)
+          and torch.equal(z_light, eager_light)
+          and not torch.equal(z_light, z_full)
+          and z_full is not M.buffer
+          and captures() - c0 == 1)
+    phase("multigrid", f"V-cycle graph {label}, {mg.n_levels} levels: replay "
+          f"== eager after a full setup {torch.equal(z_full, eager_full)}, "
+          f"after a light setup {torch.equal(z_light, eager_light)} (and "
+          f"!= the full setup's {not torch.equal(z_light, z_full)}), "
+          f"captures {captures() - c0} {'ok' if ok else 'FAIL'}")
+    assert ok
+    times = {}
+    for name, fn in [("eager", lambda: mg._cycle(light, r)),
+                     ("replay", lambda: M(r))]:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        times[name] = (1e6 * (t1 - t0) / calls, 1e6 * (t2 - t0) / calls)
+    phase("multigrid", f"  host us per M call over {calls} calls (enqueue; "
+          f"to the synchronised end): eager {times['eager'][0]:.1f}; "
+          f"{times['eager'][1]:.1f}, replay {times['replay'][0]:.1f}; "
+          f"{times['replay'][1]:.1f}")
+    return times
 
 
 def main_mg_params(pt, iterations=10):
@@ -947,20 +1034,40 @@ def run_main_mg(pt, ck):
 
 
 def traced_stencil_launches(pt, ck, grid, loads, bcs, iterations=2):
-    """The main-mg run for `iterations` under the profiler (host events
-    only): stencil_apply launches exactly once per `mg.stencil.<l>` span."""
-    n0 = ck.launches("stencil_apply")
+    """The main-mg run for `iterations` under the profiler: the launch
+    counters of `stencil_apply` and `voxel_matvec` equal the kernels the
+    device ran (the trace's kernel events by name), replayed V-cycles
+    included; the `mg.stencil.<l>` spans enclose the eager cycles' applies
+    and the setups' only."""
+    from easysimp_tpu_torch.tracing import counters
+
+    before = {k: ck.launches(k) for k in ("stencil_apply", "voxel_matvec")}
+    replays0 = counters().get("mg.graph.replay", 0)
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
         pt.simp_optimize(grid, loads, bcs, main_mg_params(pt, iterations))
         torch.cuda.synchronize()
-    launched = ck.launches("stencil_apply") - n0
-    spans = sum(e.name.startswith("easysimp:mg.stencil.")
-                for e in prof.events())
-    phase("main-mg", f"  traced run, {iterations} iterations: stencil_apply "
-          f"launches {launched}, mg.stencil.* spans {spans} "
-          f"{'ok' if launched == spans > 0 else 'FAIL'}")
-    assert launched == spans > 0, (launched, spans)
+    launched = {k: ck.launches(k) - n for k, n in before.items()}
+    replays = counters().get("mg.graph.replay", 0) - replays0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    ran = {k: sum(e.get("cat") == "kernel" and k in e["name"]
+                  for e in events) for k in launched}
+    spans = sum(e.get("cat") == "user_annotation"
+                and e["name"].startswith("easysimp:mg.stencil.")
+                for e in events)
+    ok = launched == ran and replays > 0 and 0 < spans < ran["stencil_apply"]
+    phase("main-mg", f"  traced run, {iterations} iterations: launches "
+          f"counted {launched}, kernels in the trace {ran}, V-cycle replays "
+          f"{replays}, mg.stencil.* spans {spans} {'ok' if ok else 'FAIL'}")
+    assert ok, (launched, ran, replays, spans)
 
 
 def counted_run(pt, ck, problem, params, **kw):

@@ -98,7 +98,12 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
       A: SPD linear operator on tensors shaped like b (BC masking included).
       b: right-hand side (masked).
       x0: warm start (masked); zeros if None.
-      M: preconditioner applying M^{-1} r; identity if None.
+      M: preconditioner applying M^{-1} r; identity if None.  Where M
+        offers `M.into_buffer(r)` and `M.buffer` (the multigrid's CUDA-graph
+        cycle: M(r) left in that buffer, which the next call overwrites),
+        CG calls `into_buffer`: the first residual is computed into the
+        buffer, and only what outlives the next call is copied (p at the
+        start, r where it is the buffer).  The iterates are those of M.
       rtol/atol: stop when ||r|| <= max(rtol*||b||, atol).
       maxiter: iteration cap.
       deflate: optional (m, *b.shape) recycling basis.  The warm-start
@@ -114,14 +119,23 @@ def cg_solve(A: Callable, b, x0=None, M: Callable | None = None,
     bnorm = torch.sqrt(_vdot(b, b))
     tol = torch.clamp(rtol * bnorm, min=atol)
 
-    r0 = b - A(x0)
+    buf = getattr(M, "buffer", None)
+    if buf is not None and isinstance(b, torch.Tensor) \
+            and (buf.shape, buf.dtype, buf.device) \
+            == (b.shape, b.dtype, b.device):
+        M = M.into_buffer
+    else:
+        buf = None
+    r0 = b - A(x0) if buf is None else torch.sub(b, A(x0), out=buf)
     if deflate is not None and deflate.shape[0] > 0:
         with span("cg.deflate"):
             x0, r0 = _deflate(A, deflate, x0, r0)
 
     x, r = x0, r0
-    z = M(r)
-    p = z
+    if r is buf:            # M(r0) overwrites the buffer that holds r0
+        r = r0.clone()
+    z = M(r0)
+    p = z.clone() if z is buf else z
     rz = _vdot(r, z)
     zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
     k = 0

@@ -493,4 +493,7 @@ def stencil_apply(C, mask, x, r=None):
             nnx, nny, nnz, stream)
     _raise_on(err, "stencil_apply")
     count(_COUNTER["stencil_apply"][C.dtype])
+    # each tensor read once and the output written once
+    count("bytes.stencil_apply", C.numel() * C.element_size()
+          + (3 if r is None else 4) * x.numel() * x.element_size())
     return out

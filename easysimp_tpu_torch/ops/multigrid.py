@@ -19,6 +19,18 @@ builds and the dense Cholesky are PyTorch ops.  M(r) makes no host
 synchronisation: the Chebyshev coefficients are device scalars computed
 once per setup.
 
+On one CUDA device the cycle is one CUDA graph per hierarchy.  The
+hierarchy then holds one state, pinned to the free mask of its first
+setup there, which `setup` and `setup_light` on that mask refresh in place
+(the values bitwise those of a fresh state); M(r) on that state copies r
+into a buffer of the hierarchy's and replays the graph.  The graph is
+captured once, at the first such call, after an eager cycle that answers
+it; each replay adds to the counters what the captured cycle counted, so
+the `launch.*` counters count the launches the device makes.  Every other
+call (a CPU tensor, a sharded field, another state, such as a setup's on
+another free mask, a call inside another capture) runs the same `_vcycle`
+eagerly.
+
 Not ported, because they only work around the TPU: `power_init_split` and
 the per-level programs behind it, and the fused-kernel installs (a CUDA
 tensor takes the kernel by itself).
@@ -32,7 +44,7 @@ import numpy as np
 import torch
 
 from ..grids import VoxelGrid
-from ..tracing import span
+from ..tracing import count, counters, span, sync
 from .cg import _vdot
 from .cuda_kernels import stencil_apply
 from .operator import VoxelOperator
@@ -59,6 +71,32 @@ def _max_coarse_dofs() -> int:
     EASYSIMP_MAX_COARSE_DOFS, with the reference's default: at 128^3 it
     stops at a 2187-dof coarsest level."""
     return int(os.environ.get("EASYSIMP_MAX_COARSE_DOFS", "4100"))
+
+
+def _copy_into(dst, src):
+    """Write the tensors of `src` into those of `dst`, a structure of the
+    same nesting (dicts, lists, tuples, tensors, None); a tensor that is
+    already its target is left alone."""
+    if isinstance(src, torch.Tensor):
+        if dst is not src:
+            assert dst.shape == src.shape and dst.dtype == src.dtype
+            dst.copy_(src)
+    elif isinstance(src, dict):
+        for key, value in src.items():
+            _copy_into(dst[key], value)
+    elif src is not None:
+        assert len(dst) == len(src)
+        for d, v in zip(dst, src):
+            _copy_into(d, v)
+
+
+def _capture(fn):
+    """A CUDA graph of what `fn` launches on the current stream; the
+    capture itself runs nothing on the device."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def _coarsen_counts(nels):
@@ -156,7 +194,10 @@ class MultigridPreconditioner:
     The hierarchy lives on `fine_op.device`.  The state that `setup`
     returns is a dictionary of tensors: per level the moduli, masks,
     diagonals, Jacobi weights, lambda_max estimates, Chebyshev coefficients
-    and Galerkin stencils, and the coarsest level's Cholesky factor."""
+    and Galerkin stencils, and the coarsest level's Cholesky factor.  On
+    one CUDA device that dictionary is the hierarchy's own, refreshed in
+    place by every setup on the free mask of its first, and M(r) on it
+    replays the cycle's CUDA graph (module docstring)."""
 
     def __init__(self, fine_op: VoxelOperator, levels: int = 0,
                  smooth_iters=1, power_iters: int = 10,
@@ -231,6 +272,14 @@ class MultigridPreconditioner:
 
         self._coarse_ndofs = 3 * self.ops[-1].grid.n_nodes
         self._index = None
+        # one CUDA device: the state that setups refresh in place, the free
+        # mask it is pinned to, the cycle graph, what the captured cycle
+        # counted, and the buffer the graph reads r from and writes M(r) to
+        self._state = None
+        self._free_mask = None
+        self._graph = None
+        self._graph_counts = {}
+        self._buffer = None
 
     def _coarse_index(self):
         """The coarsest level's dense assembly indices on the device, made
@@ -519,8 +568,41 @@ class MultigridPreconditioner:
             sd = self.stencil_dtype
             state["stencils"] = [None if s is None else s.to(sd)
                                  for s in state["stencils"]]
-        return (self._with_chebyshev(state, range(self.n_levels)),
+        return (self._keep(self._with_chebyshev(state, range(self.n_levels)),
+                           scale, free_mask),
                 tuple(new_vecs))
+
+    def _on_card(self, t):
+        """Whether `t` is a plain tensor on the current CUDA device and the
+        hierarchy lives there: the path of the own state and the cycle
+        graph."""
+        if not (isinstance(t, torch.Tensor) and t.is_cuda
+                and self.device.type == "cuda"):
+            return False
+        index = torch.cuda.current_device()
+        return t.device.index == index and self.device.index in (None, index)
+
+    def _keep(self, state, scale, free_mask):
+        """The state a setup returns: on one CUDA device the hierarchy's
+        own, with `state`'s values written into it, where the setup ran on
+        the free mask of the hierarchy's first setup there; elsewhere, and
+        on another free mask, `state` itself (and M on it runs the eager
+        cycle).  The masks come from the free mask alone and are not
+        copied."""
+        if not self._on_card(scale) or (self._state is not None
+                                        and free_mask is not self._free_mask):
+            return state
+        if self._state is None:
+            # the caller keeps its moduli tensor: the state takes a copy
+            self._state = dict(state, scales=[
+                t.clone() if t is scale else t for t in state["scales"]])
+            self._free_mask = free_mask
+            self._buffer = torch.empty_like(free_mask, dtype=self.dtype)
+        else:
+            for key, value in state.items():
+                if key not in ("masks", "mask_flat"):
+                    _copy_into(self._state[key], value)
+        return self._state
 
     @property
     def supports_light_setup(self) -> bool:
@@ -580,7 +662,9 @@ class MultigridPreconditioner:
         state = dict(prev_state, scales=scales, diags=diags, lams=lams,
                      omegas=omegas, stencils=stencils)
         new_vecs = (v0, v1) + tuple(power_vectors[2:])
-        return self._with_chebyshev(state, (0, 1)), new_vecs
+        return (self._keep(self._with_chebyshev(state, (0, 1)), scale,
+                           free_mask),
+                new_vecs)
 
     # ------------------------------------------------------------------
     def _apply_level(self, lvl, state, v, r=None):
@@ -661,17 +745,74 @@ class MultigridPreconditioner:
             return self.smooth_iters[min(lvl, len(self.smooth_iters) - 1)]
         return self.smooth_iters
 
-    def make_M(self, state):
-        """M(r): one cycle on a prebuilt state, in the cycle dtype."""
+    def _cycle(self, state, r, out=None):
+        """One cycle on r, run in the cycle dtype: M(r) in r's dtype, or
+        written into `out`."""
         lp = self.cycle_dtype
+        x = self._vcycle(0, state, r if lp is None else r.to(lp))
+        if out is not None:
+            return out.copy_(x)
+        return x if lp is None else x.to(r.dtype)
+
+    def make_M(self, state):
+        """M(r): one cycle on a prebuilt state, in the cycle dtype, as a
+        tensor of its own.
+
+        On the hierarchy's own state (one CUDA device), r a tensor of the
+        operator's dtype on that device replays the cycle's CUDA graph (the
+        first such call captures it); every other call runs the cycle
+        eagerly.  M on the own state also offers `M.into_buffer(r)`, M(r)
+        without the copy out of the graph's buffer `M.buffer`: it returns
+        that buffer where it replays, which then holds M(r) until the next
+        call on the hierarchy (r may be the buffer; `cg_solve` uses it).
+        Counters: `mg.graph.capture`, `mg.graph.replay`, `mg.graph.eager`,
+        one per call."""
+        own = state is not None and state is self._state
+
+        def into_buffer(r):
+            with span("mg.vcycle"):
+                if (own and self._on_card(r)
+                        and r.dtype == self.dtype
+                        and r.shape == self._buffer.shape
+                        and not torch.cuda.is_current_stream_capturing()):
+                    return self._replay(r)
+                count("mg.graph.eager")
+                return self._cycle(state, r)
 
         def M(r):
-            with span("mg.vcycle"):
-                if lp is None:
-                    return self._vcycle(0, state, r)
-                return self._vcycle(0, state, r.to(lp)).to(r.dtype)
+            z = into_buffer(r)
+            return z.clone() if own and z is self._buffer else z
 
+        if own:
+            M.buffer, M.into_buffer = self._buffer, into_buffer
         return M
+
+    def _replay(self, r):
+        """M(r) through the cycle's graph, captured at the first call: the
+        buffer, or the first call's eager answer.  The capture launches
+        nothing, so what it counted comes off the counters and goes back on
+        at every replay."""
+        buf = self._buffer
+        if self._graph is None:
+            out = self._cycle(self._state, r)   # warm-up, and the answer
+            with sync("mg_capture"):
+                before = counters()
+                self._graph = _capture(
+                    lambda: self._cycle(self._state, buf, out=buf))
+                self._graph_counts = {
+                    k: n - before.get(k, 0) for k, n in counters().items()
+                    if n != before.get(k, 0)}
+            for k, n in self._graph_counts.items():
+                count(k, -n)
+            count("mg.graph.capture")
+            return out
+        if r is not buf:
+            buf.copy_(r)
+        self._graph.replay()
+        for k, n in self._graph_counts.items():
+            count(k, n)
+        count("mg.graph.replay")
+        return buf
 
     def preconditioner_factory(self):
         """Cold factory (scale, mask) -> M(r), with a full power estimation

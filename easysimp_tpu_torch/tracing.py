@@ -21,10 +21,21 @@ Spans (nested as the code nests them): `cg`, `cg.deflate`; `mg.vcycle`,
 `op.apply`; `amg.setup`, `amg.vcycle`; `halo.extend`; `sync.<site>`.
 Counters: `cg.iterations`, `steps` (SIMP iterations), `sync.<site>`,
 `launch.voxel_matvec.<dtype>`, `launch.voxel_energies.<dtype>`,
-`launch.element_apply.<dtype>`, `launch.stencil_apply.<dtype>` (one per
-`mg.stencil.<l>` span on one device; the stencil's dtype); `setup.full`
-and `setup.light` (voxel preconditioner setups), `setup.watchdog` (the
-full setups a degraded CG count forced).
+`launch.element_apply.<dtype>`, `launch.stencil_apply.<dtype>` (the
+stencil's dtype) and `bytes.stencil_apply` (the bytes those launches read
+and write, each tensor once); `setup.full` and `setup.light` (voxel
+preconditioner setups), `setup.watchdog` (the full setups a degraded CG
+count forced); `mg.graph.capture`, `mg.graph.replay` and `mg.graph.eager`,
+one per multigrid M(r) call by the path it took (ops/multigrid.py
+`make_M`: the capture of a hierarchy's V-cycle graph, a replay of it, or
+the eager cycle); the capture's wait is `sync.mg_capture`.
+
+A replayed V-cycle runs no Python: it enters none of the spans inside
+`mg.vcycle` (`mg.smooth.<l>`, `mg.transfer.<l>`, `mg.stencil.<l>`,
+`mg.coarsest`), which on one CUDA device therefore time only eager cycles.
+Its counters are kept all the same: each replay adds what the captured
+cycle counted (the capture itself counts nothing), so the `launch.*` and
+`bytes.*` counters count the launches the device makes, replayed or not.
 """
 
 from __future__ import annotations
